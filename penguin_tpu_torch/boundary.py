@@ -177,5 +177,9 @@ def eval_condition_value(value, coords, t=None):
     ref = coords[0]
     shape = torch.broadcast_shapes(*[c.shape for c in coords])
     out = value if not callable(value) else _call_condition(value, coords, t)
-    out = torch.as_tensor(out, dtype=ref.dtype, device=ref.device)
+    if isinstance(out, (int, float)):
+        # a fill, not a copy from the host that would wait for the device
+        out = torch.full((), out, dtype=ref.dtype, device=ref.device)
+    else:
+        out = torch.as_tensor(out, dtype=ref.dtype, device=ref.device)
     return torch.broadcast_to(out, shape)

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ._device import resolve_device
 from .quadrature import box_integrals
 
 __all__ = ["Capacity", "compute_capacity", "compute_capacity_spacetime"]
@@ -151,7 +152,7 @@ def _gamma_from_apertures(A, is_empty, is_cut, full_vol, lo, hi, n):
 
 
 def compute_capacity(body, mesh, p: int = 8, s: int = 2,
-                     dtype=torch.float64, device="cpu", band_budget=None,
+                     dtype=torch.float64, device=None, band_budget=None,
                      cut_moments="auto") -> Capacity:
     """Compute all cut-cell capacities for ``body`` on ``mesh`` (the dense
     static path of ``penguin_tpu.capacity.compute_capacity``).
@@ -159,7 +160,8 @@ def compute_capacity(body, mesh, p: int = 8, s: int = 2,
     ``body`` must accept ``mesh.ndim`` coordinate tensors (broadcasting) and
     return the signed distance (negative = fluid).  ``cut_moments="auto"``
     builds the cut moments Am/Bm/Vh for N >= 2, as the JAX default does for
-    static geometry.  The JAX version's ``params`` and
+    static geometry.  The tensors go to ``device``, by default the CUDA
+    device (see ``_device``).  The JAX version's ``params`` and
     ``compute_centroids=False`` have no caller on the static path and are
     left out.
     """
@@ -169,7 +171,7 @@ def compute_capacity(body, mesh, p: int = 8, s: int = 2,
             "ROADMAP Queue 1 item 6")
     if cut_moments == "auto":
         cut_moments = mesh.ndim >= 2
-    return _capacity_impl(body, mesh, dtype, torch.device(device), p, s,
+    return _capacity_impl(body, mesh, dtype, resolve_device(device), p, s,
                           bool(cut_moments))
 
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .capacity import Capacity
 
 __all__ = ["CAPACITY_FIELDS", "capacity_from_numpy", "capacity_to_numpy"]
@@ -23,10 +24,12 @@ CAPACITY_FIELDS = ("A", "B", "V", "W", "C_om", "C_ga", "Gamma", "cell_types",
 _PER_AXIS = ("A", "B", "W", "Am", "Bm", "Vh")
 
 
-def capacity_from_numpy(fields, mesh, device="cpu", dtype=torch.float64):
+def capacity_from_numpy(fields, mesh, device=None, dtype=torch.float64):
     """Port :class:`Capacity` from a mapping of field name -> numpy array
     (or tuple of arrays for the per-axis fields).  ``cell_types`` becomes
-    int8, every other field ``dtype``; missing cut-moment fields stay None."""
+    int8, every other field ``dtype``; missing cut-moment fields stay None.
+    The tensors go to ``device``, by default the CUDA device."""
+    device = resolve_device(device)
 
     def conv(name, a):
         kind = torch.int8 if name == "cell_types" else dtype

@@ -15,8 +15,8 @@ the last index along the axis:
 Transposes are exact adjoints.  Periodic variants reproduce the reference
 wrap entries (0-based: columns ``m-1`` and ``0`` in rows ``0`` and ``m``).
 
-Not ported yet: ``ConvectionOps`` and the ``cross_moment`` correction
-(``_LsqGradient``), ROADMAP Queue 1 items 5 and 6.
+Not ported yet: the ``cross_moment`` correction (``_LsqGradient``), ROADMAP
+Queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -28,7 +28,8 @@ import torch.nn.functional as F
 
 __all__ = [
     "dm", "dm_t", "dp", "dp_t", "sm", "sm_t", "sp", "sp_t",
-    "DiffusionOps", "make_diffusion_ops", "make_wdag", "grad_op", "div_op",
+    "DiffusionOps", "ConvectionOps", "make_diffusion_ops",
+    "make_convection_ops", "make_wdag", "grad_op", "div_op",
 ]
 
 
@@ -52,13 +53,13 @@ def _shift_p(x, axis):
     return _pad_axis(x, axis, 0, 1).narrow(axis, 1, x.shape[axis])
 
 
-def _index(x, i):
-    return torch.tensor([i], device=x.device)
-
+# _zlast and _addat pad a slice instead of indexing: an index tensor made
+# on the card is a copy from the host that waits for the device, once per
+# call, and these run inside every operator application.
 
 def _zlast(x, axis):
     """Zero the last slice along ``axis``."""
-    return x.index_fill(axis, _index(x, x.shape[axis] - 1), 0.0)
+    return _pad_axis(x.narrow(axis, 0, x.shape[axis] - 1), axis, 0, 1)
 
 
 def _take(x, axis, i):
@@ -66,7 +67,8 @@ def _take(x, axis, i):
 
 
 def _addat(x, axis, i, val):
-    return x.index_add(axis, _index(x, i), val)
+    """``x`` with ``val`` (one slice) added at index ``i`` along ``axis``."""
+    return x + _pad_axis(val, axis, i, x.shape[axis] - 1 - i)
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +239,62 @@ def make_diffusion_ops(capacity, periodic=None,
         V=capacity.V,
         Wdag=make_wdag(capacity.W),
         periodic=periodic,
+    )
+
+
+@dataclasses.dataclass
+class ConvectionOps(DiffusionOps):
+    """Adds the flux-form convection operators (src/operators.jl:194-210):
+
+    ``C_d x = Dp_d( (Sm_d(A_d uₒ_d)) * Sm_d(x) )``
+    ``K_d x = diag(Sp_d(Hᵀ uᵧ)) x``
+
+    ``u_face``: per-axis bulk velocity sampled on the DOF grid;
+    ``k_diag``: per-axis diagonal ``Sp_d(Hᵀ(uᵧ))``.
+    """
+
+    u_face: tuple = None
+    k_diag: tuple = None
+
+    def C(self, x, d):
+        a_u = sm(self.A[d] * self.u_face[d], d, self._per(d))
+        return dp(a_u * sm(x, d, self._per(d)), d, self._per(d))
+
+    def K(self, x, d):
+        return self.k_diag[d] * x
+
+    def conv(self, x):
+        """Σ_d C_d x (bulk convection)."""
+        out = 0.0
+        for d in range(self.ndim):
+            out = out + self.C(x, d)
+        return out
+
+    def kconv(self, x):
+        out = 0.0
+        for d in range(self.ndim):
+            out = out + self.K(x, d)
+        return out
+
+
+def make_convection_ops(capacity, u_bulk, u_gamma, periodic=None) -> ConvectionOps:
+    """``u_bulk``: tuple of N tensors on the DOF grid (per-axis velocity);
+    ``u_gamma``: one DOF-grid tensor used on every axis, or a tuple of N
+    per-axis face tensors (interface velocity along normals)."""
+    base = make_diffusion_ops(capacity, periodic)
+    ndim = len(capacity.A)
+    if not isinstance(u_gamma, (tuple, list)):
+        u_gamma = tuple(u_gamma for _ in range(ndim))
+    ht_u = base.HT(tuple(u_gamma))
+    k_diag = tuple(sp(ht_u, d, base._per(d)) for d in range(ndim))
+    return ConvectionOps(
+        A=capacity.A,
+        B=capacity.B,
+        V=capacity.V,
+        Wdag=base.Wdag,
+        periodic=periodic,
+        u_face=tuple(u_bulk),
+        k_diag=k_diag,
     )
 
 

@@ -18,7 +18,8 @@ def caps():
     jcap = jpt.compute_capacity(jpt.geometry.circle((1.0, 0.9), 0.8),
                                 jpt.Mesh(n, (2.0, 2.0)), p=4, s=1)
     tcap = tpt.compute_capacity(tpt.geometry.circle((1.0, 0.9), 0.8),
-                                tpt.Mesh(n, (2.0, 2.0)), p=4, s=1)
+                                tpt.Mesh(n, (2.0, 2.0)), p=4, s=1,
+                                device="cpu")
     return jcap, tcap
 
 
@@ -29,7 +30,7 @@ def test_border_cells_and_positions(n):
     assert sorted(jmasks) == sorted(tmasks)
     for key in jmasks:
         np.testing.assert_array_equal(tmasks[key], jmasks[key])
-    for a, b in zip(ja.border_positions(jm), ta.border_positions(tm)):
+    for a, b in zip(ja.border_positions(jm), ta.border_positions(tm, device="cpu")):
         assert b.dtype == torch.float64
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
 
@@ -52,7 +53,8 @@ def test_border_bc_matvec_and_rhs(caps, with_capacity):
     jb = ja.border_info(jcap.mesh, _conditions(jpt),
                         capacity=jcap if with_capacity else None)
     tb = ta.border_info(tcap.mesh, _conditions(tpt),
-                        capacity=tcap if with_capacity else None)
+                        capacity=tcap if with_capacity else None,
+                        device="cpu")
     rng = np.random.default_rng(8)
     y, x, b = rng.standard_normal((3,) + jcap.mesh.np_shape)
     got = tb.matvec(torch.as_tensor(y), torch.as_tensor(x)).numpy()

@@ -39,9 +39,9 @@ def _pair(n, L, jbody, tbody, dt, cg_tol, cg_maxiter, borders=BORDERS_2D,
     jcap = jpt.compute_capacity(jbody, jmesh, p=p, s=s)
     if carry_capacity:
         tcap = capacity_from_numpy(_jax_numpy_fields(jcap), tmesh,
-                                   dtype=torch.float64)
+                                   device="cpu", dtype=torch.float64)
     else:
-        tcap = tpt.compute_capacity(tbody, tmesh, p=p, s=s)
+        tcap = tpt.compute_capacity(tbody, tmesh, p=p, s=s, device="cpu")
     jfast = JaxFastHeatBE(jcap, jpt.make_diffusion_ops(jcap), 1.0, source,
                           jpt.Dirichlet(1.0), _borders(jpt, borders), dt,
                           cg_tol=cg_tol, cg_maxiter=cg_maxiter)
@@ -131,7 +131,8 @@ def test_f32_matches_f64_port():
     body = tpt.geometry.circle((2.0, 2.0), 1.0)
     out = {}
     for dtype in (torch.float64, torch.float32):
-        cap = tpt.compute_capacity(body, mesh, p=4, s=1, dtype=dtype)
+        cap = tpt.compute_capacity(body, mesh, p=4, s=1, dtype=dtype,
+                                   device="cpu")
         fast = FastHeatBE(cap, tpt.make_diffusion_ops(cap), 1.0,
                           lambda x, y, z, t: 0.0, tpt.Dirichlet(1.0),
                           _borders(tpt, BORDERS_2D), 0.25 * (L / n) ** 2,
@@ -192,7 +193,7 @@ def test_chunked_cg_equals_early_exit(tol, maxiter):
     n, L = 24, 4.0
     mesh = tpt.Mesh((n, n), (L, L))
     cap = tpt.compute_capacity(tpt.geometry.circle((2.0, 2.0), 1.0), mesh,
-                               p=4, s=1)
+                               p=4, s=1, device="cpu")
     fast = FastHeatBE(cap, tpt.make_diffusion_ops(cap), 1.0, 0.0,
                       tpt.Dirichlet(1.0), _borders(tpt, BORDERS_2D),
                       100.0 * (L / n) ** 2)

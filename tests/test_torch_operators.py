@@ -86,7 +86,8 @@ def both_ops():
     jm = jpt.Mesh(n, (2.0, 2.0), (0.0, 0.0))
     tm = tpt.Mesh(n, (2.0, 2.0), (0.0, 0.0))
     jcap = jpt.compute_capacity(jpt.geometry.circle((1.0, 1.0), 0.7), jm)
-    tcap = tpt.compute_capacity(tpt.geometry.circle((1.0, 1.0), 0.7), tm)
+    tcap = tpt.compute_capacity(tpt.geometry.circle((1.0, 1.0), 0.7), tm,
+                                device="cpu")
     return jpt.make_diffusion_ops(jcap), tpt.make_diffusion_ops(tcap), n
 
 
@@ -152,6 +153,6 @@ def test_divergence_adjointness(both_ops):
 def test_cross_moment_not_ported():
     n = (6, 6)
     cap = tpt.compute_capacity(tpt.geometry.circle((1.0, 1.0), 0.7),
-                               tpt.Mesh(n, (2.0, 2.0)))
+                               tpt.Mesh(n, (2.0, 2.0)), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpt.make_diffusion_ops(cap, cross_moment=True)

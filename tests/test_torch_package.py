@@ -1,6 +1,7 @@
 """Package-level checks of the PyTorch port: it imports no JAX, it says
-what it has not ported yet, its condition values take the requested dtype,
-and its kernel build is keyed by the sources."""
+what it has not ported yet, its entry points default to the CUDA device,
+its condition values take the requested dtype, and its kernel build is
+keyed by the sources."""
 
 import re
 import subprocess
@@ -20,7 +21,9 @@ PKG = Path(tpt.__file__).parent
 
 def test_import_leaves_no_jax():
     code = ("import sys, penguin_tpu_torch, penguin_tpu_torch.solvers, "
-            "penguin_tpu_torch.kernels; "
+            "penguin_tpu_torch.kernels, penguin_tpu_torch.linsolve, "
+            "penguin_tpu_torch.utils, penguin_tpu_torch.interpolation, "
+            "penguin_tpu_torch.convergence; "
             "print(any(m == 'jax' or m.startswith('jax.') "
             "for m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -42,6 +45,47 @@ def test_unported_paths_raise():
     from penguin_tpu_torch.capacity import compute_capacity_spacetime
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         compute_capacity_spacetime(body, mesh, 0.0, 1.0)
+
+
+def _entry_points():
+    from penguin_tpu_torch import assembly, interpolation, utils
+    from penguin_tpu_torch.convert import (capacity_from_numpy,
+                                           capacity_to_numpy)
+    from penguin_tpu_torch.solvers import diffusion
+    mesh = tpt.Mesh((6, 6), (2.0, 2.0))
+    body = tpt.geometry.circle((1.0, 1.0), 0.6)
+    bc_b = tpt.BorderConditions({"left": tpt.Dirichlet(0.0)})
+    fields = capacity_to_numpy(tpt.compute_capacity(body, mesh, device="cpu"))
+    return {
+        "compute_capacity": lambda: tpt.compute_capacity(body, mesh).V,
+        "border_positions": lambda: assembly.border_positions(mesh)[0],
+        "BorderBC": lambda: assembly.BorderBC(mesh, bc_b).items[0][-1],
+        "border_info": lambda: assembly.border_info(mesh, bc_b).items[0][-1],
+        "capacity_from_numpy": lambda: capacity_from_numpy(fields, mesh).V,
+        "zero_state_mono": lambda: diffusion.zero_state_mono(mesh)[0],
+        "zero_state_diph": lambda: diffusion.zero_state_diph(mesh)[0],
+        "initialize_temperature_uniform":
+            lambda: utils.initialize_temperature_uniform(mesh, 1.0)[0],
+        "initialize_temperature_circle": lambda: utils.
+            initialize_temperature_circle(mesh, (1.0, 1.0), 0.5, 1.0)[0],
+        "initialize_rotating_velocity_field":
+            lambda: utils.initialize_rotating_velocity_field(mesh)[0],
+        "lin_interpol": lambda: interpolation.lin_interpol(
+            [0.0, 1.0], [0.0, 1.0], [0.5]),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_points_default_to_cuda(name):
+    """Called without a device, an entry point that makes tensors puts them
+    on the CUDA device; where there is none it raises instead of carrying
+    on on the CPU."""
+    make = _entry_points()[name]
+    if torch.cuda.is_available():
+        assert make().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

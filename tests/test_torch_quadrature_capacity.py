@@ -119,7 +119,7 @@ def test_capacity_2d_matches_jax(c, R, n):
     tm = tpt.Mesh((n, n), (4.0, 4.0), (0.0, 0.0))
     for p, s in ((4, 1), (8, 2)):
         jcap = jpt.compute_capacity(jb, jm, p=p, s=s)
-        tcap = tpt.compute_capacity(tb, tm, p=p, s=s)
+        tcap = tpt.compute_capacity(tb, tm, p=p, s=s, device="cpu")
         compare_capacity(jcap, tcap, F64_TOL)
 
 
@@ -128,7 +128,8 @@ def test_capacity_3d_sphere_matches_jax():
     jm = jpt.Mesh(n, (2.0, 2.0, 2.0), (0.0, 0.0, 0.0))
     tm = tpt.Mesh(n, (2.0, 2.0, 2.0), (0.0, 0.0, 0.0))
     jcap = jpt.compute_capacity(jpt.geometry.sphere((1.0, 1.0, 1.0), 0.7), jm)
-    tcap = tpt.compute_capacity(tpt.geometry.sphere((1.0, 1.0, 1.0), 0.7), tm)
+    tcap = tpt.compute_capacity(tpt.geometry.sphere((1.0, 1.0, 1.0), 0.7), tm,
+                                device="cpu")
     compare_capacity(jcap, tcap, F64_TOL)
 
 
@@ -150,7 +151,7 @@ def test_capacity_f32_build_64():
     jcap = jpt.compute_capacity(jb, jpt.Mesh((n, n), (4.0, 4.0)), p=4, s=1,
                                 dtype=jnp.float32)
     tcap = tpt.compute_capacity(tb, tpt.Mesh((n, n), (4.0, 4.0)), p=4, s=1,
-                                dtype=torch.float32)
+                                dtype=torch.float32, device="cpu")
     jf = _jax_fields(jcap)
     tf = capacity_to_numpy(tcap)
     flip = jf["cell_types"] != tf["cell_types"]
@@ -178,7 +179,8 @@ def test_capacity_1d_interval_matches_jax():
     jm = jpt.Mesh((16,), (2.0,), (0.0,))
     tm = tpt.Mesh((16,), (2.0,), (0.0,))
     jcap = jpt.compute_capacity(jpt.geometry.interval(1.03, 0.61), jm)
-    tcap = tpt.compute_capacity(tpt.geometry.interval(1.03, 0.61), tm)
+    tcap = tpt.compute_capacity(tpt.geometry.interval(1.03, 0.61), tm,
+                                device="cpu")
     compare_capacity(jcap, tcap, F64_TOL)
 
 
