@@ -12,10 +12,17 @@ the results, compares the card with the port's CPU path, then drives the
 general scalar path (the masked mono/diph assembly and the matrix-free
 Krylov solvers of ``linsolve``: diffusion, two-phase and advection-diffusion
 solvers, f32 at 1024² and 512²) against the FastHeatBE result and physical
-gates, compares it with the CPU path in f64, and times the steps and the
-kernels with CUDA events.  Every phase raises on failure, so the exit code
-is 0 only if all passed.  Without a CUDA device it exits with an error
-before doing anything.
+gates, and compares it with the CPU path in f64.  Then it drives the
+moving-interface path: the prescribed-motion heat case on an oscillating
+circle at 1024² in f32 through ``MovingDiffusionUnsteadyMono`` (a space-time
+capacity rebuilt every slab) with its grid convergence in f64, a front of
+512 markers on a 512² mesh built dense and through the narrow-band engine
+and marched by the same solver, and the moving solvers, the cut-moment
+operators and the volume Jacobian card against CPU in f64 (phases 8-10).
+Last it times the steps, the slabs and the kernels with CUDA events (phase
+7).  Every phase raises on failure, so the exit code is 0 only if all
+passed.  Without a CUDA device it exits with an error before doing
+anything.
 
 The last two lines of standard output are a JSON object with one entry per
 kernel and then ``{"ok": true, "device": {...}}``.
@@ -63,9 +70,36 @@ DIPH_N = 512
 ADV_N = 512
 KEYS2 = ("left", "right", "top", "bottom")
 
+# the moving-interface path
+MOV_N = 1024             # oscillating circle, f32, solver defaults p=6, s=1
+MOV_SLABS = 20           # one initial slab and 20 more
+MOV_TOL = 1e-5           # CG relres in f32 (the solver's 1e-10 is an f64 tol)
+# error against the manufactured solution after the 21 slabs at 1024², f32:
+# the largest over cells holding at least 1% of a full cell's volume at the
+# end (measured 5.8e-2 on an H100, in small cut cells; 2.3e-1 at 48² in f64,
+# so it is the scheme's and falls with h), and the volume-weighted L2 over
+# all wet cells (measured 5.2e-4).  Cells born in the last slab as slivers
+# are left out of the first: both packages leave such a cell at 0 (its
+# space-time volume is under the empty threshold, so its row is an
+# identity), an O(1) error (measured 0.90) in a cell of negligible volume
+MOV_ERR_TOL = 0.15
+MOV_L2_TOL = 1.5e-3
+MOV_VOL_TOL = 1e-4       # |sum(Va) / (pi r²) - 1| of every slab
+MOV_CONV_SIZES = (32, 64, 128)
+FT_N = 512               # front-tracked slab: 512² mesh, 512 markers
+FT_MARKERS = 512
+FT_SLABS = 5
+
 
 def log(msg):
     print(msg, flush=True)
+
+
+def sync(device):
+    """Wait for the card; nothing to wait for when a phase is rehearsed on
+    the CPU."""
+    if device.type == "cuda":
+        torch.cuda.synchronize()
 
 
 def cuda_ms(fn, reps):
@@ -596,6 +630,340 @@ def phase_general_card_vs_cpu(pt, device, n=128):
             raise AssertionError(f"{label}: card and CPU disagree")
 
 
+# ---------------------------------------------------------------------------
+# the moving-interface path
+# ---------------------------------------------------------------------------
+
+def _sin(t):
+    return torch.sin(t) if isinstance(t, torch.Tensor) else math.sin(t)
+
+
+def osc_radius(t):
+    return 1.0 + 0.5 * _sin(2 * math.pi * t)
+
+
+def osc_body(x, y, t):
+    """benchmarks/phaseflow/prescribed_motion.py:74: a circle at (2, 2) of
+    radius 1 + 0.5 sin(2 pi t), fluid inside."""
+    return torch.sqrt((x - 2.0) ** 2 + (y - 2.0) ** 2) - osc_radius(t)
+
+
+def osc_phi(x, y, t):
+    """The manufactured solution, on tensors or numpy arrays; ``t`` a
+    float."""
+    cos = torch.cos if isinstance(x, torch.Tensor) else np.cos
+    return osc_radius(t) * cos(math.pi * x) * cos(math.pi * y)
+
+
+def osc_source(x, y, z, t):
+    return (math.pi * math.cos(2 * math.pi * t) * torch.cos(math.pi * x)
+            * torch.cos(math.pi * y)
+            + 2 * math.pi ** 2 * osc_phi(x, y, t))
+
+
+def osc_solver(pt, n, dtype, device, scheme="BE", cls=None):
+    """``MovingDiffusionUnsteadyMono`` (or ``cls``) on the oscillating
+    circle: Dirichlet interface from the manufactured solution, zero
+    borders, dt = 0.5 h², started at t = dt from the exact field."""
+    from penguin_tpu_torch.solvers import MovingDiffusionUnsteadyMono
+    mesh = pt.Mesh((n, n), (L, L), (0.0, 0.0))
+    dt = 0.5 * (L / n) ** 2
+    cap0 = pt.compute_capacity(lambda x, y: osc_body(x, y, dt), mesh,
+                               dtype=dtype, device=device)
+    C = cap0.C_om
+    u0 = (osc_phi(C[..., 0], C[..., 1], dt), torch.zeros_like(cap0.V))
+    solver = (cls or MovingDiffusionUnsteadyMono)(
+        pt.Phase(None, None, osc_source, 1.0),
+        pt.BorderConditions({k: pt.Dirichlet(0.0) for k in KEYS2}),
+        pt.Dirichlet(lambda x, y, t: osc_phi(x, y, t)), dt, u0, mesh, scheme)
+    return solver, mesh, dt
+
+
+def osc_error(pt, solver, mesh, tf):
+    """(max error on wet cells, the same over cells holding at least 1% of
+    a full cell, weighted L2 over all cells) against the manufactured
+    solution at ``tf``, on the static capacity there."""
+    like = dict(dtype=solver.x[0].dtype, device=solver.x[0].device)
+    cap_f = pt.compute_capacity(lambda x, y: osc_body(x, y, tf), mesh,
+                                compute_centroids=False, **like)
+    _, _, glob, *_ = pt.check_convergence(
+        lambda x, y: osc_phi(x, y, tf), solver, cap_f, 2, verbose=False)
+    exact = osc_phi(cap_f.C_om[..., 0], cap_f.C_om[..., 1], tf)
+    err = (solver.x[0] - exact).abs()
+    full = mesh.h[0] * mesh.h[1]
+    return (err[cap_f.V > 0].max().item(),
+            err[cap_f.V > 0.01 * full].max().item(), glob)
+
+
+def phase_moving(pt, device, rows, n=MOV_N, slabs=MOV_SLABS,
+                 conv_sizes=MOV_CONV_SIZES):
+    log("== phase 8: the moving-interface path on the card")
+    from penguin_tpu_torch.capacity import compute_capacity_spacetime
+    dtype = torch.float32
+    t0 = time.perf_counter()
+    solver, mesh, dt = osc_solver(pt, n, dtype, device)
+    # ceil((t_end - t_start)/dt) slabs after the first: half a step short of
+    # the last one, so rounding cannot add a slab
+    solver.solve(osc_body, dt, dt + (slabs - 0.5) * dt, tol=MOV_TOL)
+    sync(device)
+    wall = time.perf_counter() - t0
+    its, res = solver.krylov_iters, solver.krylov_relres
+    if len(its) != slabs + 1:
+        raise AssertionError(f"{len(its)} slabs solved, not {slabs + 1}")
+    for T in solver.x:
+        if not bool(torch.isfinite(T).all()):
+            raise AssertionError("moving path: non-finite values")
+    if not (res <= MOV_TOL).all():
+        raise AssertionError(f"moving path: relres {res} above {MOV_TOL}")
+    tf = dt + (slabs + 1) * dt
+    err_wet, err, glob = osc_error(pt, solver, mesh, tf)
+    # each slab's start volume against the circle's area
+    vsum = []
+    for k in range(slabs + 1):
+        t = dt + k * dt
+        cap = compute_capacity_spacetime(osc_body, mesh, t, t + dt, p=6, s=1,
+                                         dtype=dtype, device=device)
+        vsum.append(cap.A[2][..., 0].double().sum())
+    vsum = torch.stack(vsum).cpu().numpy()
+    area = np.array([math.pi * osc_radius(dt + k * dt) ** 2
+                     for k in range(slabs + 1)])
+    vrel = np.abs(vsum / area - 1.0).max()
+    log(f"{n}² f32 MovingDiffusionUnsteadyMono, oscillating circle, BE, "
+        f"dt=0.5h², p=6 s=1, reduced CG tol {MOV_TOL:.0e}, 1+{slabs} slabs in "
+        f"{wall:.2f} s with set-up: CG iterations {its.tolist()}; max relres "
+        f"{res.max():.2e}; max|T - exact| on cells wet at the end "
+        f"{err_wet:.3e}, on those holding 1% of a full cell or more "
+        f"{err:.3e} (tol {MOV_ERR_TOL:.1e}), weighted L2 {glob:.3e} (tol "
+        f"{MOV_L2_TOL:.1e}); max|sum(Va)/(pi r²) - 1| over the slabs "
+        f"{vrel:.2e} (tol {MOV_VOL_TOL:.0e})")
+    if err > MOV_ERR_TOL or glob > MOV_L2_TOL:
+        raise AssertionError(f"moving path: error {err}, L2 {glob}")
+    if vrel > MOV_VOL_TOL:
+        raise AssertionError(f"moving path: sum(Va) off by {vrel}")
+    rows["moving"] = dict(solver=solver, mesh=mesh, dt=dt)
+    # grid convergence in f64 to t_end = 0.1, the solver's defaults
+    errs = []
+    for m in conv_sizes:
+        t0 = time.perf_counter()
+        s, msh, dtm = osc_solver(pt, m, torch.float64, device)
+        s.solve(osc_body, dtm, 0.1)
+        K = len(s.krylov_iters) - 1
+        _, _, g = osc_error(pt, s, msh, dtm + (K + 1) * dtm)
+        errs.append(g)
+        log(f"{m}² f64 to t=0.1: {K + 1} slabs, CG iterations/slab "
+            f"{s.krylov_iters.mean():.1f}, max relres "
+            f"{s.krylov_relres.max():.1e}, weighted L2 error {g:.4e}, "
+            f"{time.perf_counter() - t0:.1f} s")
+    order = -np.polyfit(np.log(np.asarray(conv_sizes, float)),
+                        np.log(errs), 1)[0]
+    log(f"order over all cells, {conv_sizes}: {order:.2f} (gate > 0.9)")
+    if not order > 0.9:
+        raise AssertionError(f"oscillating circle: order {order}")
+
+
+def front_slab(pt, n, n_markers, dtype, device, grow):
+    """A circle of ``n_markers`` markers at (2, 2), radius 1, and the same
+    front grown by ``grow``; the slab body interpolates their signed
+    distances linearly over t in [0, T] (``params = (mk_a, mk_b, T)``)."""
+    from penguin_tpu_torch.front_tracking import markers_circle, polyline_sdf
+    mesh = pt.Mesh((n, n), (L, L), (0.0, 0.0))
+    mk_a = markers_circle((2.0, 2.0), 1.0, n_markers, dtype=dtype,
+                          device=device)
+    mk_b = 2.0 + (mk_a - 2.0) * (1.0 + grow)
+
+    def body(x, y, t, params):
+        a, b, T = params
+        return ((T - t) * polyline_sdf(a, x, y)
+                + t * polyline_sdf(b, x, y)) / T
+
+    return mesh, mk_a, mk_b, body
+
+
+def _caps_equal(cd, cb, tol):
+    """tests/test_capacity_band.py's comparison: every capacity field within
+    ``tol`` absolute, the cell types equal.  Returns the largest gap."""
+    worst = 0.0
+    pairs = [(cd.V, cb.V), (cd.Gamma, cb.Gamma), (cd.C_om, cb.C_om),
+             (cd.C_ga, cb.C_ga)]
+    for fam in ("A", "B", "W"):
+        pairs += list(zip(getattr(cd, fam), getattr(cb, fam)))
+    for a, b in pairs:
+        worst = max(worst, (a - b).abs().max().item())
+    if worst > tol:
+        raise AssertionError(f"band and dense builds differ by {worst}")
+    if not torch.equal(cd.cell_types, cb.cell_types):
+        raise AssertionError("band and dense builds classify cells apart")
+    return worst
+
+
+def phase_front(pt, device, rows, n=FT_N, n_markers=FT_MARKERS,
+                slabs=FT_SLABS):
+    log("== phase 9: front-tracked geometry, dense and narrow band")
+    from penguin_tpu_torch import capacity as tc
+    from penguin_tpu_torch.front_tracking import polygon_area
+    from penguin_tpu_torch.solvers import MovingDiffusionUnsteadyMono
+    h = L / n
+    mesh, mk_a, mk_b, body = front_slab(pt, n, n_markers, torch.float64,
+                                        device, 0.5 * h)
+    T = 0.5 * h * h
+    params = (mk_a, mk_b, T)
+    kw = dict(p=4, s=1, params=params, dtype=torch.float64, device=device)
+    t0 = time.perf_counter()
+    cd = tc.compute_capacity_spacetime(body, mesh, 0.0, T, **kw)
+    sync(device)
+    t_dense = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cb = tc.compute_capacity_spacetime(body, mesh, 0.0, T, band_budget="auto",
+                                       **kw)
+    sync(device)
+    t_band = time.perf_counter() - t0
+    worst = _caps_equal(cd, cb, 1e-10)
+    nodes = [np.asarray(v) for v in mesh.nodes] + [np.array([0.0, T])]
+    count = tc.estimate_band_budget(
+        lambda *cs: body(*cs, params), nodes, tuple(mesh.n) + (1,),
+        torch.float64, 2.0, spacetime=True, device=device)
+    budget = tc._round_budget(count, mesh.ncells())
+    va = cd.A[2][..., 0].sum().item()
+    area = polygon_area(mk_a).item()
+    log(f"{n}² mesh, {n_markers} markers, one slab with the front growing "
+        f"by h/2, f64, p=4 s=1: dense build {t_dense:.2f} s, band build "
+        f"{t_band:.2f} s (first calls); every field within {worst:.2e} "
+        f"(tol 1e-10), cell types equal; band work items {count} of "
+        f"{mesh.ncells()} cells ({count / mesh.ncells():.2%}), budget "
+        f"{budget}; sum(Va)/polygon area - 1 = {va / area - 1:.2e} (tol "
+        f"1e-3)")
+    if abs(va / area - 1.0) > 1e-3:
+        raise AssertionError(f"front slab: sum(Va) {va} against area {area}")
+    rows["front"] = dict(mesh=mesh, body=body, params=params, T=T)
+    # the solver on that front, f32: heat enters from the interface at 1
+    m32 = tuple(m.float() for m in (mk_a, mk_b))
+    dt = 0.5 * h * h
+    span = (slabs + 2) * dt          # the final capacity's slab included
+
+    def body_st(x, y, t):
+        return body(x, y, t, (m32[0], m32[1], span))
+
+    z = torch.zeros(mesh.np_shape, dtype=torch.float32, device=device)
+    s = MovingDiffusionUnsteadyMono(
+        pt.Phase(None, None, lambda x, y, z, t: 0.0, 1.0),
+        pt.BorderConditions({k: pt.Dirichlet(0.0) for k in KEYS2}),
+        pt.Dirichlet(1.0), dt, (z, z), mesh, "BE")
+    t0 = time.perf_counter()
+    s.solve(body_st, 0.0, (slabs - 0.5) * dt, tol=MOV_TOL)
+    sync(device)
+    wall = time.perf_counter() - t0
+    lo, hi = check_field("front-tracked mono", s.x[0], mesh.np_shape)
+    if not (s.krylov_relres <= MOV_TOL).all() or len(s.krylov_iters) != \
+            slabs + 1:
+        raise AssertionError(f"front-tracked mono: relres {s.krylov_relres}")
+    va = s.capacity_final.A[2][..., 0].double().sum().item()
+    # the front at the final capacity's start, slabs·dt into the span
+    lam = slabs / (slabs + 2)
+    area_f = polygon_area((1.0 - lam) * mk_a + lam * mk_b).item()
+    log(f"{n}² f32 MovingDiffusionUnsteadyMono on the marker front, BE, "
+        f"dt=0.5h², p=6 s=1 dense builds, 1+{slabs} slabs in {wall:.2f} s: CG "
+        f"iterations {s.krylov_iters.tolist()}, max relres "
+        f"{s.krylov_relres.max():.2e}; T in [{lo:.3e}, {hi:.6f}]; final "
+        f"sum(Va)/polygon area - 1 = {va / area_f - 1:.2e} (tol 1e-3)")
+    if abs(va / area_f - 1.0) > 1e-3:
+        raise AssertionError("front-tracked mono: final volume off")
+    if not hi > 0.5:
+        raise AssertionError("front-tracked mono: no heat entered")
+
+
+def moving_cases(pt, device, n):
+    """(label, run) pairs for the moving path's card-vs-CPU comparison in
+    f64: each run returns (tuple of tensors, Krylov counts or None)."""
+    from penguin_tpu_torch import capacity as tc
+    from penguin_tpu_torch.front_tracking import (compute_volume_jacobian,
+                                                  markers_circle)
+    from penguin_tpu_torch.solvers import moving_diffusion as md
+    f64 = torch.float64
+    like = dict(dtype=f64, device=device)
+    cases = []
+
+    def mono(scheme, method):
+        s, _, dt = osc_solver(pt, n, f64, device, scheme)
+        s.solve(osc_body, dt, dt + 2.5 * dt, method=method, tol=1e-10)
+        masks = md.moving_masks(*md.slice_spacetime(s.capacity_final)[:4],
+                                1.0, 0.0)
+        return s.x + tuple(m.to(f64) for m in masks), s.krylov_iters.tolist()
+
+    cases.append(("Mono BE auto (reduced CG), fields and masks",
+                  lambda: mono("BE", "auto")))
+    cases.append(("Mono CN pbicgstab, fields and masks",
+                  lambda: mono("CN", "pbicgstab")))
+
+    def diph():
+        # the translating circle of tests/test_moving_diffusion.py:242 at
+        # 32²: a dense LU of the 4 x 65² unknowns of 64² would take most
+        # of a minute per slab on the CPU
+        mesh = pt.Mesh((32, 32), (L, L), (0.0, 0.0))
+        b1 = lambda x, y, t: -(torch.sqrt((x - 2.0 - 0.2 * t) ** 2
+                                          + (y - 2.0) ** 2) - 1.0)
+        z = torch.zeros(mesh.np_shape, **like)
+        s = md.MovingDiffusionUnsteadyDiph(
+            pt.Phase(None, None, lambda x, y, z, t: 0.0, 1.0),
+            pt.Phase(None, None, lambda x, y, z, t: 0.0, 2.0),
+            pt.BorderConditions({k: pt.Dirichlet(0.0) for k in KEYS2}),
+            pt.InterfaceConditions(pt.ScalarJump(1.0, 1.0, 0.0),
+                                   pt.FluxJump(1.0, 2.0, 0.0)),
+            0.01, (z + 1.0, z, z, z), mesh, "BE")
+        s.solve(b1, lambda x, y, t: -b1(x, y, t), 0.0, 0.015,
+                method="direct", p=4, s=1)
+        return s.x, s.krylov_iters.tolist()
+
+    cases.append(("Diph BE direct 32²", diph))
+
+    def advdiff():
+        s, mesh, dt = osc_solver(pt, n, f64, device,
+                                 cls=md.MovingAdvDiffusionUnsteadyMono)
+        c = pt.compute_capacity(pt.geometry.full_domain(2), mesh, p=2, s=1,
+                                **like).C_om
+        u = (-(c[..., 1] - 2.0), c[..., 0] - 2.0)
+        s.solve(osc_body, dt, dt + 1.5 * dt, u, torch.zeros_like(u[0]),
+                tol=1e-10)
+        return s.x, s.krylov_iters.tolist()
+
+    cases.append(("AdvDiffMono BE pgmres, rotating velocity", advdiff))
+
+    def moments():
+        mesh = pt.Mesh((n, n), (L, L), (0.0, 0.0))
+        cap = pt.compute_capacity(pt.geometry.circle((2.01, 1.98), 1.0), mesh,
+                                  cut_moments=True, **like)
+        ops = pt.make_diffusion_ops(cap, cross_moment=True)
+        g = torch.Generator().manual_seed(3)
+        x, xg = (torch.randn(mesh.np_shape, generator=g, dtype=f64)
+                 .to(device) for _ in range(2))
+        out = list(ops.flux(x, xg)) + [ops.GT(ops.G(x))]
+        for S_lo, X_lo, S_hi, X_hi in tc.gamma_half_moments(cap):
+            out += [S_lo, X_lo, S_hi, X_hi]
+        return tuple(out), None
+
+    cases.append(("cross-moment flux, GT·G and gamma_half_moments", moments))
+    cases.append(("compute_volume_jacobian 24², 32 markers", lambda: ((
+        compute_volume_jacobian(
+            pt.Mesh((24, 24), (L, L), (0.0, 0.0)),
+            markers_circle((2.0, 2.0), 1.0, 32, **like)),), None)))
+    return cases
+
+
+def phase_moving_card_vs_cpu(pt, device, n=64):
+    log(f"== phase 10: the moving path, card against the CPU path "
+        f"({n}² f64)")
+    card = moving_cases(pt, device, n)
+    cpu = moving_cases(pt, torch.device("cpu"), n)
+    for (label, run_g), (_, run_c) in zip(card, cpu):
+        xg, hg = run_g()
+        xc, hc = run_c()
+        err = max((a.cpu() - b).abs().max().item() / max(
+            b.abs().max().item(), 1.0) for a, b in zip(xg, xc))
+        log(f"{label}: max|x_card - x_cpu| / scale {err:.3e} (tol 1e-9); "
+            f"iterations card {hg} cpu {hc}")
+        if err > 1e-9 or hg != hc:
+            raise AssertionError(f"{label}: card and CPU disagree")
+
+
 def count_syncs(fn):
     """Run ``fn`` with CUDA sync debugging on; returns the number of calls
     that waited for the device."""
@@ -610,11 +978,22 @@ def count_syncs(fn):
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
+def _profile_kernels(fn):
+    """(number of device kernels, their summed milliseconds) of one call."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+
+
 def general_times(pt, rows, smi):
     """Set-up time, ms/step, Krylov iterations/step, host syncs/step, peak
     memory and the device's busy share of the general path's BE steps at
     the bench size, per method."""
-    from torch.profiler import ProfilerActivity, profile
     from penguin_tpu_torch.solvers import diffusion as td
     cap = rows["easy"]["cap"]
     n = cap.mesh.n[0]
@@ -638,22 +1017,125 @@ def general_times(pt, rows, smi):
         ms = [cuda_ms(run, 1) / solves for _ in range(3)]
         peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
         its = s.krylov.history[-solves:]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        n_kernels, busy_ms = _profile_kernels(run)
         log(f"general {n}² f32 BE {method}: set-up {t_setup:.2f} s "
             f"({setup_syncs} host syncs); ms/step over 1+{GEN_STEPS} solves,"
             f" 3 repeats: {', '.join(f'{m:.2f}' for m in ms)}; Krylov "
             f"iterations/step {np.mean(its):.2f} {its}; host syncs/step "
             f"{syncs / solves:.1f}; peak memory above the capacity "
-            f"{peak:.0f} MiB; profiler: {len(kernels) / solves:.0f} kernels/"
+            f"{peak:.0f} MiB; profiler: {n_kernels / solves:.0f} kernels/"
             f"step, {busy_ms / solves:.3f} ms of device time/step, so the "
             f"device is busy {busy_ms / solves / min(ms):.1%} of the fastest "
             f"step [{smi}]")
+
+
+def moving_times(pt, rows, smi, device):
+    """The moving path at the bench size: ms per slab split into capacity
+    build and solve, CG iterations, host syncs, kernels, device busy share
+    and peak memory; then the marker front at 512²: dense against band
+    build, and ``polyline_sdf`` per evaluation for several segment chunks."""
+    from penguin_tpu_torch import capacity as tc
+    from penguin_tpu_torch.front_tracking import polyline_sdf
+    from penguin_tpu_torch.solvers import moving_diffusion as md
+    mv = rows["moving"]
+    solver, mesh, dt = mv["solver"], mv["mesh"], mv["dt"]
+    n = mesh.n[0]
+    f32 = dict(dtype=torch.float32, device=device)
+    t1 = 5 * dt
+
+    def build():
+        return tc.compute_capacity_spacetime(osc_body, mesh, t1, t1 + dt, p=6,
+                                             s=1, **f32)
+
+    cap = build()
+    x_prev = solver.x
+    phase, bc_i, border = solver.phase, solver.bc_i, solver.border
+
+    def solve():
+        return md.solve_moving_mono_step(
+            cap, phase.diffusion, phase.source, bc_i, border, x_prev, t1, dt,
+            "BE", tol=MOV_TOL, maxiter=2000)
+
+    nsl = 6
+
+    def slabs():
+        s2, _, _ = osc_solver(pt, n, torch.float32, device)
+        s2.solve(osc_body, dt, dt + (nsl - 1.5) * dt, tol=MOV_TOL)
+        return s2
+
+    ms_build = [cuda_ms(build, 1) for _ in range(3)]
+    ms_solve = [cuda_ms(solve, 1) for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms_slab = [cuda_ms(slabs, 1) / nsl for _ in range(3)]
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    its = slabs().krylov_iters
+    sync_build = count_syncs(build)
+    sync_solve = count_syncs(solve)
+    sync_slabs = count_syncs(slabs)
+    kb, busy_b = _profile_kernels(build)
+    ks_, busy_s = _profile_kernels(solve)
+    log(f"moving {n}² f32 BE, oscillating circle, p=6 s=1: capacity build "
+        f"ms, 3 repeats: {', '.join(f'{m:.1f}' for m in ms_build)}; reduced "
+        f"CG solve ms: {', '.join(f'{m:.2f}' for m in ms_solve)} "
+        f"({int(solve()[1])} iterations); ms/slab through the class over "
+        f"{nsl} slabs with its set-up and final capacity: "
+        f"{', '.join(f'{m:.1f}' for m in ms_slab)}; CG iterations/slab "
+        f"{its.mean():.2f} {its.tolist()}; host syncs: build {sync_build}, "
+        f"solve {sync_solve}, class run {sync_slabs / nsl:.1f}/slab; "
+        f"kernels: build {kb} ({busy_b:.2f} ms of device time, busy "
+        f"{busy_b / min(ms_build):.1%}), solve {ks_} ({busy_s:.2f} ms, busy "
+        f"{busy_s / min(ms_solve):.1%}); peak memory above the solver's "
+        f"state {peak:.0f} MiB [{smi}]")
+    # the marker front: dense against band, f64, p=4 s=1
+    fr = rows["front"]
+    kw = dict(p=4, s=1, params=fr["params"], dtype=torch.float64,
+              device=device)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    dense = [timed(lambda: tc.compute_capacity_spacetime(
+        fr["body"], fr["mesh"], 0.0, fr["T"], **kw))]
+    band = [timed(lambda: tc.compute_capacity_spacetime(
+        fr["body"], fr["mesh"], 0.0, fr["T"], band_budget="auto", **kw))
+        for _ in range(3)]
+    nodes = [np.asarray(v) for v in fr["mesh"].nodes] + [
+        np.array([0.0, fr["T"]])]
+    budget = tc._round_budget(tc.estimate_band_budget(
+        lambda *cs: fr["body"](*cs, fr["params"]), nodes,
+        tuple(fr["mesh"].n) + (1,), torch.float64, 2.0, spacetime=True,
+        device=device), fr["mesh"].ncells())
+    fixed = [timed(lambda: tc.compute_capacity_spacetime(
+        fr["body"], fr["mesh"], 0.0, fr["T"], band_budget=budget, **kw))
+        for _ in range(3)]
+    sync_band = count_syncs(lambda: tc.compute_capacity_spacetime(
+        fr["body"], fr["mesh"], 0.0, fr["T"], band_budget=budget, **kw))
+    m = fr["mesh"]
+    log(f"marker slab {m.n[0]}² × {fr['params'][0].shape[0]} markers, f64, "
+        f"p=4 s=1: dense build s (once more after phase 9's): "
+        f"{', '.join(f'{t:.2f}' for t in dense)}; "
+        f"band build with budget \"auto\" ({budget}, sized per call): "
+        f"{', '.join(f'{t:.3f}' for t in band)}; with the budget given: "
+        f"{', '.join(f'{t:.3f}' for t in fixed)} ({sync_band} host syncs); "
+        f"dense/band = {min(dense) / min(band):.1f} [{smi}]")
+    nx = m.n[0]
+    for dtype in (torch.float64, torch.float32):
+        xs = torch.linspace(0.0, L, nx, dtype=dtype, device=device)
+        x, y = xs[:, None], xs[None, :]
+        mk = fr["params"][0].to(dtype)
+        parts = []
+        for chunk in (32, 64, 128, 512, None):
+            us = cuda_ms(lambda: polyline_sdf(mk, x, y, chunk=chunk), 3) * 1e3
+            parts.append(f"chunk {chunk}: {us:.0f}")
+        log(f"polyline_sdf, {nx}² points × {mk.shape[0]} markers, "
+            f"{str(dtype)[6:]}, µs per evaluation (3 calls each): "
+            f"{'; '.join(parts)} [{smi}]")
 
 
 def phase_times(pt, ks, rows, device, smi):
@@ -671,6 +1153,7 @@ def phase_times(pt, ks, rows, device, smi):
             f"{', '.join(f'{m:.4f}' for m in ms)}; CG iters/step over the "
             f"span last={int(last)} max={int(mx)}{mean} [{smi}]")
     general_times(pt, rows, smi)
+    moving_times(pt, rows, smi, device)
     kernels = []
     for name, shape, kernel, plain in (
             ("stencil5_matvec", (N2D + 1,) * 2, ks.stencil5_matvec,
@@ -736,6 +1219,11 @@ def main():
     phase_card_vs_cpu(pt, FastHeatBE, device, rows)
     phase_general(pt, device, rows)
     phase_general_card_vs_cpu(pt, device)
+    # the moving path launches neither kernel (nor does the JAX package's):
+    # their counts are those of phase 3
+    phase_moving(pt, device, rows)
+    phase_front(pt, device, rows)
+    phase_moving_card_vs_cpu(pt, device)
     timed = phase_times(pt, ks, rows, device, smi)
     replaces = {"stencil5_matvec": "penguin_tpu/pallas_kernels/stencil.py:250",
                 "stencil7_matvec": "penguin_tpu/pallas_kernels/stencil.py:220"}

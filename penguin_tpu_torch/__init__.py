@@ -3,10 +3,13 @@
 A second package beside the JAX one, which stays the reference.  It keeps
 the JAX package's module and public names; inside it works on torch tensors
 with an explicit dtype and device.  So far it covers mesh and geometry,
-the dense static capacity build, the diffusion and convection operators,
-the masked mono/diph assembly, the matrix-free Krylov and dense solvers
-(``linsolve``), the scalar diffusion, advection-diffusion and Darcy
-solvers, and the backward-Euler heat stepper ``solvers.FastHeatBE``, whose
+the static, space-time and narrow-band capacity builds with their cut
+moments, the diffusion (with the cross-moment correction) and convection
+operators, the masked mono/diph assembly, the matrix-free Krylov and dense
+solvers (``linsolve``), marker front tracking (``front_tracking``,
+``front_tracking1d``), the scalar diffusion, advection-diffusion and Darcy
+solvers, the prescribed-motion diffusion solvers
+(``solvers.moving_diffusion``), and the backward-Euler heat stepper ``solvers.FastHeatBE``, whose
 CG matvec runs through the hand-written CUDA stencil kernels of
 ``kernels`` on a CUDA device.  It never imports JAX.
 

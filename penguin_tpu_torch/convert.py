@@ -4,8 +4,11 @@
 arrays of a ``penguin_tpu`` capacity (``{name: np.asarray(...)}``, tuples
 for the per-axis fields), so the port's solvers can run on exactly the
 geometry the JAX package computed; ``capacity_to_numpy`` goes the other way.
-This module imports no JAX: the caller converts the JAX arrays with
-``np.asarray``.
+A space-time slab capacity goes across the same way: its fields carry one
+more trailing axis (the two time slots), its cut moments are present or
+None, and its ``mesh`` is None.  ``markers_from_numpy`` and
+``markers_to_numpy`` carry a front's (n, 2) marker array.  This module
+imports no JAX: the caller converts the JAX arrays with ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ import torch
 from ._device import resolve_device
 from .capacity import Capacity
 
-__all__ = ["CAPACITY_FIELDS", "capacity_from_numpy", "capacity_to_numpy"]
+__all__ = ["CAPACITY_FIELDS", "capacity_from_numpy", "capacity_to_numpy",
+           "markers_from_numpy", "markers_to_numpy"]
 
 # data fields of a Capacity; the per-axis ones are tuples
 CAPACITY_FIELDS = ("A", "B", "V", "W", "C_om", "C_ga", "Gamma", "cell_types",
@@ -24,7 +28,7 @@ CAPACITY_FIELDS = ("A", "B", "V", "W", "C_om", "C_ga", "Gamma", "cell_types",
 _PER_AXIS = ("A", "B", "W", "Am", "Bm", "Vh")
 
 
-def capacity_from_numpy(fields, mesh, device=None, dtype=torch.float64):
+def capacity_from_numpy(fields, mesh=None, device=None, dtype=torch.float64):
     """Port :class:`Capacity` from a mapping of field name -> numpy array
     (or tuple of arrays for the per-axis fields).  ``cell_types`` becomes
     int8, every other field ``dtype``; missing cut-moment fields stay None.
@@ -63,3 +67,14 @@ def capacity_to_numpy(capacity):
         else:
             out[name] = conv(value)
     return out
+
+
+def markers_from_numpy(markers, device=None, dtype=torch.float64):
+    """A front's (n, 2) marker array as a tensor on ``device``, by default
+    the CUDA device."""
+    return torch.as_tensor(np.array(markers), device=resolve_device(device)
+                           ).to(dtype)
+
+
+def markers_to_numpy(markers):
+    return markers.detach().cpu().numpy()

@@ -14,9 +14,6 @@ the last index along the axis:
 
 Transposes are exact adjoints.  Periodic variants reproduce the reference
 wrap entries (0-based: columns ``m-1`` and ``0`` in rows ``0`` and ``m``).
-
-Not ported yet: the ``cross_moment`` correction (``_LsqGradient``), ROADMAP
-Queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -30,6 +27,7 @@ __all__ = [
     "dm", "dm_t", "dp", "dp_t", "sm", "sm_t", "sp", "sp_t",
     "DiffusionOps", "ConvectionOps", "make_diffusion_ops",
     "make_convection_ops", "make_wdag", "grad_op", "div_op",
+    "sw_apply", "sw_applyT",
 ]
 
 
@@ -157,6 +155,17 @@ class DiffusionOps:
 
     ``G_d x = Dm_d(B_d x)``; ``H_d x = A_d Dm_d(x) - Dm_d(B_d x)``;
     ``Wdag = 1/W`` where ``W != 0`` else 1 (src/operators.jl:144-152).
+
+    ``Xw`` (optional, from ``make_diffusion_ops(..., cross_moment=True)``)
+    is the wet-line cross-moment correction: ``B_d x`` samples the field at
+    the cell centroid, but the exact Gauss identity for the staggered-strip
+    flux needs the average of ``x`` over the *wet section* of the centroid
+    plane, whose own centroid is offset transversally by up to h/2 in cut
+    cells.  With ``Xw`` set, ``G_d x = Dm_d(P_d x)`` where ``P_d x = B_d x
+    + sum_{e != d} B_d delta_{d,e} dx/dx_e`` (masked transverse differences
+    of wet neighbours), which makes the flux exact for linear fields;
+    ``GT`` uses the exact adjoint ``P_d^T`` so the viscous form stays
+    symmetric.
     """
 
     A: tuple
@@ -164,6 +173,7 @@ class DiffusionOps:
     V: torch.Tensor
     Wdag: tuple
     periodic: tuple = None
+    Xw: tuple = None  # per d: (K0, ((wp_e, wm_e))_e) or None
 
     @property
     def ndim(self):
@@ -172,9 +182,23 @@ class DiffusionOps:
     def _per(self, d):
         return False if self.periodic is None else self.periodic[d]
 
+    def _P(self, d, x):
+        """B_d x plus the wet-line transverse cross-moment correction."""
+        y = self.B[d] * x
+        if self.Xw is not None:
+            y = y + sw_apply(self.Xw[d], x)
+        return y
+
+    def _PT(self, d, y):
+        """Exact adjoint of ``_P(d, ·)``."""
+        x = self.B[d] * y
+        if self.Xw is not None:
+            x = x + sw_applyT(self.Xw[d], y)
+        return x
+
     # --- building blocks ---------------------------------------------------
     def G(self, x):
-        return tuple(dm(self.B[d] * x, d, self._per(d)) for d in range(self.ndim))
+        return tuple(dm(self._P(d, x), d, self._per(d)) for d in range(self.ndim))
 
     def H(self, x):
         return tuple(
@@ -185,7 +209,7 @@ class DiffusionOps:
     def GT(self, q):
         out = 0.0
         for d in range(self.ndim):
-            out = out + self.B[d] * dm_t(q[d], d, self._per(d))
+            out = out + self._PT(d, dm_t(q[d], d, self._per(d)))
         return out
 
     def HT(self, q):
@@ -205,7 +229,7 @@ class DiffusionOps:
         return tuple(
             self.Wdag[d]
             * (
-                dm(self.B[d] * x_omega, d, self._per(d))
+                dm(self._P(d, x_omega), d, self._per(d))
                 + self.A[d] * dm(x_gamma, d, self._per(d))
                 - dm(self.B[d] * x_gamma, d, self._per(d))
             )
@@ -227,18 +251,131 @@ def make_wdag(W):
                  for w in W)
 
 
+class _LsqGradient:
+    """Per-cell weighted least-squares gradient fit over all wet
+    face-neighbours at their FULL centroid offsets.
+
+    Cut-cell centroids are displaced in every coordinate, so a plain
+    axis-aligned difference quotient picks up an O(1) cross-axis
+    contamination exactly at the cut cells the moment corrections target.
+    ``weights_for(delta)`` turns a per-cell offset vector into the
+    shift-stencil weights ``(K0, ((wp_e, wm_e))_e)`` realizing
+    ``delta · grad x``; apply with :func:`sw_apply` (exact adjoint
+    :func:`sw_applyT`)."""
+
+    def __init__(self, capacity):
+        N = len(capacity.A)
+        C = capacity.C_om
+        dt_ = capacity.V.dtype
+        fi = torch.finfo(dt_)
+        tiny = fi.tiny
+        wet = (capacity.V > 0.0).to(dt_)
+        shape = tuple(capacity.V.shape)
+        self.N, self.dtype, self.shape = N, dt_, shape
+
+        # neighbour slots: (axis e, ±1) -> shift_p / shift_m source
+        slots = []
+        for e in range(N):
+            for sgn, sh in ((+1, _shift_p), (-1, _shift_m)):
+                m_i = sh(wet, e)
+                dC = torch.stack([sh(C[..., j], e) - C[..., j]
+                                  for j in range(N)], dim=-1)
+                dC = dC * m_i[..., None]
+                d2 = torch.sum(dC * dC, dim=-1)
+                wgt = torch.where(d2 > tiny, m_i / torch.clamp_min(d2, tiny),
+                                  0.0)
+                slots.append((e, sgn, dC, wgt))
+        self.slots = slots
+
+        # normal matrix S = sum w_i dC dC^T  (per cell, N×N), regularized
+        S = torch.zeros(shape + (N, N), dtype=dt_, device=C.device)
+        for (_, _, dC, wgt) in slots:
+            S = S + wgt[..., None, None] * dC[..., :, None] * dC[..., None, :]
+        tr = torch.diagonal(S, dim1=-2, dim2=-1).sum(-1)
+        reg_rel = 1e-10 if fi.bits >= 64 else 1e-5
+        reg = (reg_rel * torch.clamp_min(tr, tiny) + tiny)[..., None, None] \
+            * torch.eye(N, dtype=dt_, device=C.device)
+        # inv_ex reports a singular matrix in `info` instead of raising, so
+        # nothing waits for the device; the entries are masked below
+        Sinv = torch.linalg.inv_ex(S + reg).inverse
+        self.Sinv = torch.where(torch.isfinite(Sinv), Sinv, 0.0)
+        # degenerate fits (fewer than N independent neighbours): drop the
+        # correction rather than trust an ill-conditioned gradient.  det
+        # threshold relative to (tr/N)^N, dtype-aware for f32.
+        det_rel = 1e-8 if fi.bits >= 64 else 1e-4
+        self.ok = (tr > tiny) & (torch.linalg.det(S) >
+                                 (det_rel ** (1.0 / N)
+                                  * torch.clamp_min(tr, tiny) / N) ** N)
+
+    def weights_for(self, delta):
+        """Shift weights for ``delta · grad x`` (``delta``: shape + (N,))."""
+        N = self.N
+        dS = torch.einsum("...j,...jk->...k", delta, self.Sinv)
+        k0 = torch.zeros(self.shape, dtype=self.dtype, device=delta.device)
+        per_axis = [[None, None] for _ in range(N)]
+        for (e, sgn, dC, wgt) in self.slots:
+            c = torch.einsum("...k,...k->...", dS, dC) * wgt
+            c = torch.where(self.ok, c, 0.0)
+            k0 = k0 - c
+            per_axis[e][0 if sgn > 0 else 1] = c
+        return (k0, tuple((pa[0], pa[1]) for pa in per_axis))
+
+
+def sw_apply(w, x):
+    """Apply shift-stencil weights ``(K0, ((wp_e, wm_e))_e)`` to x."""
+    k0, slots = w
+    y = k0 * x
+    for e, (wp, wm) in enumerate(slots):
+        y = y + wp * _shift_p(x, e) + wm * _shift_m(x, e)
+    return y
+
+
+def sw_applyT(w, y):
+    """Exact adjoint of :func:`sw_apply`."""
+    k0, slots = w
+    x = k0 * y
+    for e, (wp, wm) in enumerate(slots):
+        x = x + _shift_m(wp * y, e) + _shift_p(wm * y, e)
+    return x
+
+
+def _cross_weights(capacity):
+    """Xw weights realizing ``B_d sum_{e != d} delta_{d,e} dx/dx_e`` at
+    every cut cell, ``delta_{d,e} = Bm[d]_e - C_om_e`` the transverse offset
+    of the wet-line centroid (see :class:`_LsqGradient`)."""
+    N = len(capacity.A)
+    C = capacity.C_om
+    is_cut = capacity.cell_types == -1
+    lsq = _LsqGradient(capacity)
+    Xw = []
+    for d in range(N):
+        delta = torch.stack(
+            [torch.where(is_cut, capacity.Bm[d][..., e] - C[..., e], 0.0)
+             if e != d else torch.zeros_like(capacity.V) for e in range(N)],
+            dim=-1) * capacity.B[d][..., None]
+        Xw.append(lsq.weights_for(delta))
+    return tuple(Xw)
+
+
 def make_diffusion_ops(capacity, periodic=None,
                        cross_moment=False) -> DiffusionOps:
+    """``cross_moment=True`` (requires a ``cut_moments=True`` capacity
+    build) activates the wet-line cross-moment correction of ``B_d x``, see
+    :class:`DiffusionOps`."""
+    Xw = None
     if cross_moment:
-        raise NotImplementedError(
-            "cross_moment=True (the wet-line cross-moment correction) is not "
-            "ported yet: ROADMAP Queue 1 item 6")
+        if capacity.Bm is None:
+            raise ValueError(
+                "cross_moment=True needs capacity cut moments; build with "
+                "compute_capacity(..., cut_moments=True)")
+        Xw = _cross_weights(capacity)
     return DiffusionOps(
         A=capacity.A,
         B=capacity.B,
         V=capacity.V,
         Wdag=make_wdag(capacity.W),
         periodic=periodic,
+        Xw=Xw,
     )
 
 

@@ -1,5 +1,6 @@
 """Solvers of the PyTorch port: the scalar diffusion, advection-diffusion
-and Darcy solvers, and the benchmark's heat stepper."""
+and Darcy solvers, the prescribed-motion (moving interface) diffusion
+solvers, and the benchmark's heat stepper."""
 
 from .diffusion import (
     DiffusionSteadyMono,
@@ -14,6 +15,12 @@ from .advdiff import (
     AdvectionDiffusionUnsteadyDiph,
 )
 from .darcy import DarcyFlow, DarcyFlowUnsteady, solve_darcy_velocity
+from .moving_diffusion import (
+    MovingDiffusionUnsteadyMono,
+    MovingDiffusionUnsteadyDiph,
+    MovingAdvDiffusionUnsteadyMono,
+    MovingAdvDiffusionUnsteadyDiph,
+)
 from .heat_fast import FastHeatBE
 
 __all__ = [
@@ -28,5 +35,9 @@ __all__ = [
     "DarcyFlow",
     "DarcyFlowUnsteady",
     "solve_darcy_velocity",
+    "MovingDiffusionUnsteadyMono",
+    "MovingDiffusionUnsteadyDiph",
+    "MovingAdvDiffusionUnsteadyMono",
+    "MovingAdvDiffusionUnsteadyDiph",
     "FastHeatBE",
 ]

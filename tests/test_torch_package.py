@@ -1,5 +1,7 @@
-"""Package-level checks of the PyTorch port: it imports no JAX, it says
-what it has not ported yet, its entry points default to the CUDA device,
+"""Package-level checks of the PyTorch port: it imports no JAX, the
+paths that once raised as not ported give results, it exports the JAX
+package's public names for what it has ported, its entry points default to
+the CUDA device,
 its condition values take the requested dtype, and its kernel build is
 keyed by the sources."""
 
@@ -23,7 +25,9 @@ def test_import_leaves_no_jax():
     code = ("import sys, penguin_tpu_torch, penguin_tpu_torch.solvers, "
             "penguin_tpu_torch.kernels, penguin_tpu_torch.linsolve, "
             "penguin_tpu_torch.utils, penguin_tpu_torch.interpolation, "
-            "penguin_tpu_torch.convergence; "
+            "penguin_tpu_torch.convergence, penguin_tpu_torch.front_tracking, "
+            "penguin_tpu_torch.front_tracking1d, "
+            "penguin_tpu_torch.solvers.moving_diffusion; "
             "print(any(m == 'jax' or m.startswith('jax.') "
             "for m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -38,19 +42,48 @@ def test_no_jax_import_in_sources():
 
 
 def test_unported_paths_raise():
+    """The narrow-band and space-time builds raised ``NotImplementedError``
+    until they were ported; now they return capacities, and nothing in the
+    package raises it any more."""
     mesh = tpt.Mesh((6, 6), (2.0, 2.0))
     body = tpt.geometry.circle((1.0, 1.0), 0.6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpt.compute_capacity(body, mesh, band_budget=1024)
+    dense = tpt.compute_capacity(body, mesh, device="cpu")
+    band = tpt.compute_capacity(body, mesh, band_budget=1024, device="cpu")
+    np.testing.assert_allclose(band.V.numpy(), dense.V.numpy(), atol=1e-12)
     from penguin_tpu_torch.capacity import compute_capacity_spacetime
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compute_capacity_spacetime(body, mesh, 0.0, 1.0)
+    slab = compute_capacity_spacetime(lambda x, y, t: body(x, y), mesh, 0.0,
+                                      1.0, device="cpu")
+    assert slab.V.shape == (7, 7, 2)
+    np.testing.assert_allclose(slab.V[..., 0].numpy(), dense.V.numpy(),
+                               atol=1e-12)
+    for path in PKG.rglob("*.py"):
+        assert "NotImplementedError" not in path.read_text(), path
+
+
+def test_public_names_follow_the_jax_package():
+    """Every public name of the JAX package's modules that the port has
+    taken over is a public name of the port's module too."""
+    import importlib
+    for mod in ("capacity", "operators", "front_tracking", "front_tracking1d",
+                "solvers.moving_diffusion", "linsolve", "utils"):
+        j = importlib.import_module("penguin_tpu." + mod)
+        t = importlib.import_module("penguin_tpu_torch." + mod)
+        missing = [n for n in j.__all__ if not hasattr(t, n)]
+        assert not missing, (mod, missing)
+        assert set(j.__all__) <= set(t.__all__), mod
+    from penguin_tpu_torch import solvers
+    for name in ("MovingDiffusionUnsteadyMono", "MovingDiffusionUnsteadyDiph",
+                 "MovingAdvDiffusionUnsteadyMono",
+                 "MovingAdvDiffusionUnsteadyDiph"):
+        assert name in solvers.__all__ and hasattr(solvers, name)
 
 
 def _entry_points():
-    from penguin_tpu_torch import assembly, interpolation, utils
+    from penguin_tpu_torch import (assembly, capacity, front_tracking,
+                                   front_tracking1d, interpolation, utils)
     from penguin_tpu_torch.convert import (capacity_from_numpy,
-                                           capacity_to_numpy)
+                                           capacity_to_numpy,
+                                           markers_from_numpy)
     from penguin_tpu_torch.solvers import diffusion
     mesh = tpt.Mesh((6, 6), (2.0, 2.0))
     body = tpt.geometry.circle((1.0, 1.0), 0.6)
@@ -72,6 +105,30 @@ def _entry_points():
             lambda: utils.initialize_rotating_velocity_field(mesh)[0],
         "lin_interpol": lambda: interpolation.lin_interpol(
             [0.0, 1.0], [0.0, 1.0], [0.5]),
+        "compute_capacity_spacetime":
+            lambda: capacity.compute_capacity_spacetime(
+                lambda x, y, t: body(x, y), mesh, 0.0, 1.0).V,
+        "compute_cell_volumes":
+            lambda: capacity.compute_cell_volumes(body, mesh),
+        "estimate_band_budget": lambda: capacity.estimate_band_budget(
+            body, [np.asarray(v) for v in mesh.nodes], mesh.n, torch.float64,
+            2.0),
+        "markers_circle":
+            lambda: front_tracking.markers_circle((1.0, 1.0), 0.5, 8),
+        "markers_ellipse":
+            lambda: front_tracking.markers_ellipse((1.0, 1.0), 0.5, 0.3, 8),
+        "markers_rectangle":
+            lambda: front_tracking.markers_rectangle((0., 0.), (1., 1.), 2),
+        "markers_ngon":
+            lambda: front_tracking.markers_ngon((1.0, 1.0), 0.5, 4, 8),
+        "markers_crystal":
+            lambda: front_tracking.markers_crystal((1.0, 1.0), 0.5, 12),
+        "FrontTracker": lambda: front_tracking.FrontTracker().create_circle(
+            (1.0, 1.0), 0.5, 8).markers,
+        "FrontTracker1D":
+            lambda: front_tracking1d.FrontTracker1D([0.5, 1.5]).markers,
+        "markers_from_numpy":
+            lambda: markers_from_numpy(np.zeros((4, 2))),
     }
 
 
