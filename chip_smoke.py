@@ -19,8 +19,16 @@ capacity rebuilt every slab) with its grid convergence in f64, a front of
 512 markers on a 512² mesh built dense and through the narrow-band engine
 and marched by the same solver, and the moving solvers, the cut-moment
 operators and the volume Jacobian card against CPU in f64 (phases 8-10).
-Last it times the steps, the slabs and the kernels with CUDA events (phase
-7).  Every phase raises on failure, so the exit code is 0 only if all
+Then the phase-change path: the Frank disk of benchmarks/stefan2d_tpu.py at
+256² with 256 markers in f32 through ``StefanMono2D.solve`` (a narrow-band
+slab capacity rebuilt every Gauss-Newton iteration) and, at 64², its
+autodiff, geometric, two-phase and Gibbs-Thomson variants (phase 11); the 1D
+Stefan convergence row of benchmarks/stefan1d_convergence.py, the
+coupled-Newton and adaptive 1D solvers, the height-function and the
+species/binary-alloy solvers (phase 12); every class of that path card
+against CPU in f64 (phase 13).  Last it times the steps, the slabs, the GN
+and Newton iterations and the kernels with CUDA events (phase 7).  Every
+phase raises on failure, so the exit code is 0 only if all
 passed.  Without a CUDA device it exits with an error before doing
 anything.
 
@@ -88,7 +96,29 @@ MOV_VOL_TOL = 1e-4       # |sum(Va) / (pi r²) - 1| of every slab
 MOV_CONV_SIZES = (32, 64, 128)
 FT_N = 512               # front-tracked slab: 512² mesh, 512 markers
 FT_MARKERS = 512
-FT_SLABS = 5
+# 1+1 slabs (1+5 before the phase-change phases; cut for the time limit)
+FT_SLABS = 1
+
+# the phase-change path
+FRANK_S = 1.0            # the Frank disk: R(t) = S sqrt(t), from t0 = 1
+FRANK_CENTER = (4.0, 4.0)
+STEF_DT = 0.02
+STEF_N = 256             # benchmarks/stefan2d_tpu.py's largest size: 256²,
+STEF_MARKERS = 256       # 256 markers, f32
+STEF_STEPS = 10          # 1+10 steps; the script runs 20, cut for time
+STEF_RADIUS_TOL = 0.10   # that script's hard gate on the mean radius
+STEF_ROUND_TOL = 0.03    # std/mean of the marker radii
+STEF_SMALL = 64          # the autodiff, geometric, diphasic and
+                         # Gibbs-Thomson legs: 64², 64 markers, f32,
+STEF_SMALL_STEPS = 1     # 1+1 steps each, 1+2 for the two-phase leg whose
+                         # gates need the growth (the JAX tests run 1+3 to 1+5)
+# benchmarks/stefan1d_convergence.py's row at nx = 64: the one-phase run
+# at its finest row, nx = 128, took 62.2 s on an H100, over the 60 s that
+# keeps it
+STEF1D_NX = 64
+HEIGHT_N = (48, 192)     # 4x tests/test_stefan2d_height.py's 12 × 48,
+HEIGHT_STEPS = 3         # over 1+3 of its 1+15 steps, cut for time
+SPECIES_N = 256          # tests/test_concentration_binary.py's cases
 
 
 def log(msg):
@@ -964,6 +994,661 @@ def phase_moving_card_vs_cpu(pt, device, n=64):
             raise AssertionError(f"{label}: card and CPU disagree")
 
 
+# ---------------------------------------------------------------------------
+# the phase-change path (phases 11-13)
+# ---------------------------------------------------------------------------
+
+def frank_problem(pt, n, n_markers, dtype, device, bc_i=None, diph=False):
+    """The Frank disk of benchmarks/stefan2d_tpu.py:23-80: a solid disk of
+    radius S·sqrt(t0) at (4, 4) in an 8 × 8 box grows into liquid
+    undercooled to T_inf, held on the borders; the interface is at the
+    melting temperature 0 and the liquid starts from the similarity solution
+    at t0 = 1 on the liquid capacity's centroids.  Returns (solver, front,
+    ic): ``StefanMono2D`` with ``bc_i`` (default Dirichlet 0), or
+    ``StefanDiph2D`` with the solid as phase 1 at 0."""
+    from scipy.special import exp1
+    from penguin_tpu_torch.front_tracking import FrontTracker
+    from penguin_tpu_torch.solvers.stefan2d import StefanDiph2D, StefanMono2D
+    like = dict(dtype=dtype, device=device)
+    q = FRANK_S ** 2 / 4
+    T_inf = -q * math.exp(q) * exp1(q)   # the undercooling St of S
+    mesh = pt.Mesh((n, n), (8.0, 8.0), (0.0, 0.0))
+    front = FrontTracker(**like).create_circle(FRANK_CENTER, FRANK_S,
+                                               n=n_markers)
+    cap0 = pt.compute_capacity(lambda x, y: -front.sdf(x, y), mesh, p=4, s=1,
+                               **like)
+    C = cap0.C_om.double().cpu().numpy()
+    r = np.hypot(C[..., 0] - FRANK_CENTER[0], C[..., 1] - FRANK_CENTER[1])
+    Tw = np.where(r >= FRANK_S, T_inf * (
+        1 - exp1(np.maximum(r ** 2 / 4, 1e-9)) / exp1(q)), 0.0)
+    Tw = torch.as_tensor(Tw, **like)
+    z = torch.zeros_like(Tw)
+    bc_b = pt.BorderConditions({k: pt.Dirichlet(float(T_inf))
+                                for k in KEYS2})
+    phase = pt.Phase(None, None, lambda x, y, z, t: 0.0, 1.0)
+    ic = pt.InterfaceConditions(pt.ScalarJump(1.0, 1.0, 0.0),
+                                pt.FluxJump(1.0, 1.0, 1.0))
+    if diph:
+        return (StefanDiph2D(phase, phase, bc_b, ic, STEF_DT, (z, z, Tw, z),
+                             mesh, "BE"), front, ic)
+    return (StefanMono2D(phase, bc_b, bc_i or pt.Dirichlet(0.0), STEF_DT,
+                         (Tw, z), mesh, "BE"), front, ic)
+
+
+def frank_radius(markers):
+    """(mean radius about the centre, std/mean) of a marker front."""
+    mk = markers.double().cpu().numpy()
+    r = np.hypot(mk[:, 0] - FRANK_CENTER[0], mk[:, 1] - FRANK_CENTER[1])
+    return float(r.mean()), float(r.std() / r.mean())
+
+
+def frank_exact(steps_solved):
+    return FRANK_S * math.sqrt(1.0 + steps_solved * STEF_DT)
+
+
+def check_front(label, s):
+    """Markers and the per-step residuals finite; returns (mean radius,
+    roundness, similarity radius, relative error)."""
+    if not bool(torch.isfinite(s.markers).all()):
+        raise AssertionError(f"{label}: non-finite markers")
+    if not np.isfinite(s.residual_log).all():
+        raise AssertionError(f"{label}: non-finite residuals "
+                             f"{s.residual_log}")
+    R, rnd = frank_radius(s.markers)
+    R_ex = frank_exact(len(s.residual_log))
+    return R, rnd, R_ex, R / R_ex - 1.0
+
+
+def phase_stefan(pt, ks, device, rows, n=STEF_N, n_markers=STEF_MARKERS,
+                 steps=STEF_STEPS, small=STEF_SMALL,
+                 small_steps=STEF_SMALL_STEPS):
+    log("== phase 11: the marker Stefan flagship at full width on the card "
+        "(f32)")
+    f32 = torch.float32
+    gn = dict(interior_fluid=False, method="auto", p=4, s=1)
+    ks.stencil5_matvec.launches = 0
+    ks.stencil7_matvec.launches = 0
+    s, front, ic = frank_problem(pt, n, n_markers, f32, device)
+    sync(device)
+    t0 = time.perf_counter()
+    s.solve(front, 0.0, (steps - 0.5) * STEF_DT, ic,
+            newton_params=(8, 1e-4, 1e-6, 1.0), jac="intercept",
+            band_budget="auto", **gn)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = {"stencil5_matvec": ks.stencil5_matvec.launches,
+                "stencil7_matvec": ks.stencil7_matvec.launches}
+    R, rnd, R_ex, rel = check_front("flagship", s)
+    its = s.iters_log
+    log(f"{n}² mesh, {n_markers} markers, f32, dt={STEF_DT}, BE, intercept "
+        f"Jacobian, band budget {s._band_budget}: 1+{steps} steps in "
+        f"{wall:.2f} s with set-up, GN iterations/step {its.tolist()} "
+        f"({its.sum()} in all, {wall / its.sum() * 1e3:.1f} ms each), "
+        f"Krylov iterations/step {s.krylov_iters.tolist()}, final GN "
+        f"residuals {np.array2string(s.residual_log, precision=3)}; mean "
+        f"radius {R:.5f} against S·sqrt(t0 + K·dt) = {R_ex:.5f}: "
+        f"{rel:+.3%} (gate ±{STEF_RADIUS_TOL:.0%}); std/mean {rnd:.4f} "
+        f"(gate {STEF_ROUND_TOL}); stencil kernels launched on this path: "
+        f"{launches} (it reaches no TPU kernel)")
+    if abs(rel) > STEF_RADIUS_TOL or rnd > STEF_ROUND_TOL:
+        raise AssertionError(f"flagship: radius {R} against {R_ex}, "
+                             f"roundness {rnd}")
+    rows["stefan"] = dict(solver=s, wall=wall)
+    R0 = FRANK_S
+    def leg(steps=small_steps, **kw):
+        """A 64² f32 Frank disk solved over 1+``steps`` steps: (solver,
+        wall seconds)."""
+        span = (steps - 0.5) * STEF_DT
+        s, front, ic = frank_problem(pt, small, small, f32, device,
+                                     bc_i=kw.pop("bc_i", None),
+                                     diph=kw.pop("diph", False))
+        sync(device)
+        t0 = time.perf_counter()
+        if kw.pop("geom", False):
+            s.solve_geom(front, 0.0, span, ic, **gn)
+        elif isinstance(s, StefanDiph2D):
+            s.solve(front, 0.0, span, **kw)
+        else:
+            s.solve(front, 0.0, span, ic, **gn, **kw)
+        sync(device)
+        return s, time.perf_counter() - t0
+
+    from penguin_tpu_torch.solvers.stefan2d import StefanDiph2D
+    s, wall = leg(newton_params=(8, 1e-4, 1e-6, 1.0), jac="autodiff")
+    if not bool(torch.isfinite(s.markers).all()):
+        raise AssertionError("autodiff leg: non-finite markers")
+    R, rnd = frank_radius(s.markers)
+    R_ex = frank_exact(len(s.iters_log))
+    its = s.iters_log
+    log(f"{small}² × {small} markers f32, autodiff Jacobian, 1+{small_steps} "
+        f"steps in {wall:.2f} s: GN iterations/step {its.tolist()} "
+        f"({wall / its.sum() * 1e3:.1f} ms each), final GN residuals "
+        f"{np.array2string(s.residual_log, precision=3)}; radius {R:.5f} "
+        f"against {R_ex:.5f}: {R / R_ex - 1:+.3%} (reported: the JAX package "
+        f"treats f32 autodiff convergence as marginal), std/mean {rnd:.4f}")
+    if not R > R0:
+        raise AssertionError(f"autodiff leg: the front did not grow ({R})")
+    rows["stefan_ad"] = dict(wall=wall, iters=int(its.sum()), solver=s)
+    s, wall = leg(geom=True)
+    R, rnd, R_ex, rel = check_front("solve_geom", s)
+    log(f"{small}² solve_geom, 1+{small_steps} steps in {wall:.2f} s: "
+        f"iterations/step {s.iters_log.tolist()}; radius {R:.5f} against "
+        f"{R_ex:.5f}: {rel:+.3%} (gate ±{STEF_RADIUS_TOL:.0%}), std/mean "
+        f"{rnd:.4f}")
+    if not R > R0 or abs(rel) > STEF_RADIUS_TOL:
+        raise AssertionError(f"solve_geom: radius {R} against {R_ex}")
+    # the diphasic disk with tests/test_stefan2d_diph.py's settings and gates
+    s, wall = leg(steps=small_steps + 1, diph=True,
+                  newton_params=(12, 1e-4, 1e-6, 1.0),
+                  interior_phase1=True, latent_sign=-1.0,
+                  enable_stencil_fusion=False, smooth_window=5,
+                  smooth_passes=1, extrapolation_factor=0.5,
+                  jac="intercept", p=4, s=1)
+    R, rnd, R_ex, rel = check_front("StefanDiph2D", s)
+    log(f"{small}² StefanDiph2D, latent_sign -1, intercept, "
+        f"1+{small_steps + 1} steps in {wall:.2f} s: GN iterations/step "
+        f"{s.iters_log.tolist()}, "
+        f"last residual {s.residual_log[-1]:.3e} (gate 0.05); radius "
+        f"{R:.5f} (gate > {R0 + 0.02}) against {R_ex:.5f}: {rel:+.3%} (gate "
+        f"±3%), std/mean {rnd:.4f} (gate 0.02)")
+    if not (R > R0 + 0.02 and rnd < 0.02 and abs(rel) < 0.03
+            and s.residual_log[-1] < 0.05):
+        raise AssertionError("StefanDiph2D gates failed")
+    # Gibbs-Thomson: curvature and kinetic undercooling each slow growth
+    # (tests/test_stefan2d.py:221,274).  Gated on the markers only: in f32
+    # the curvature run's GN residual grows step by step and an inner CG
+    # ends in NaN by the fourth step, in the JAX package too (ROADMAP
+    # Queue 3), and whether the disk still grows is printed, not gated
+    radii, res = {}, {}
+    for label, gt in (("eps=0", (0.0, 0.0)), ("eps_k=0.1", (0.1, 0.0)),
+                      ("eps_v=0.2", (0.0, 0.2))):
+        s, wall = leg(bc_i=pt.GibbsThomson(0.0, *gt),
+                      newton_params=(10, 1e-4, 1e-6, 1.0), jac="intercept")
+        if not bool(torch.isfinite(s.markers).all()):
+            raise AssertionError(f"{label}: non-finite markers")
+        radii[label] = frank_radius(s.markers)[0]
+        res[label] = np.array2string(s.residual_log, precision=3)
+    base = radii["eps=0"]
+    log(f"{small}² Gibbs-Thomson, 1+{small_steps} steps: mean radii {radii} "
+        f"(gate: eps_k below eps=0 by 1e-4, eps_v by 1e-5; above the start "
+        f"radius {R0}: "
+        f"{ {k: r > R0 for k, r in radii.items()} }); final GN residuals "
+        f"{res}")
+    if not (radii["eps_k=0.1"] < base - 1e-4
+            and radii["eps_v=0.2"] < base - 1e-5):
+        raise AssertionError(f"Gibbs-Thomson gates failed: {radii}")
+
+
+def stefan1d_convergence_row(nx):
+    """The row of benchmarks/stefan1d_convergence.csv for ``nx``: (one-phase
+    front error, two-phase front error)."""
+    import csv
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "benchmarks", "stefan1d_convergence.csv")
+    with open(path, newline="") as f:
+        for row in csv.DictReader(f):
+            if int(row["nx"]) == nx:
+                return float(row["front_err_1ph"]), float(row["front_err_2ph"])
+    raise AssertionError(f"no row for nx={nx} in {path}")
+
+
+def stefan1d_problem(pt, nx, dt, t_start, device, two_phase=False,
+                     cls=None):
+    """benchmarks/stefan1d_convergence.py:39-101 (and
+    tests/test_stefan1d.py): the one-phase Stefan problem with T0 = 1 at
+    x = 0, St = 1, or the two-phase Neumann problem (St_l = 1, St_s = 0.2),
+    on [0, 2] from the similarity solution at ``t_start``, in f64.  Returns
+    (solver, xf0, ic, λ)."""
+    from scipy.special import erf, erfc
+    from penguin_tpu_torch.solvers import stefan1d as s1
+    like = dict(dtype=torch.float64, device=device)
+    mesh = pt.Mesh((nx,), (2.0,), (0.0,))
+    ic = pt.InterfaceConditions(pt.ScalarJump(1.0, 1.0, 0.0),
+                                pt.FluxJump(1.0, 1.0, 1.0))
+    phase = pt.Phase(None, None, lambda x, y, z, t: 0.0, 1.0)
+    if two_phase:
+        lam = s1.find_lambda_stefan_two_phase(1.0, 0.2)
+    else:
+        lam = s1.find_lambda_stefan(1.0)
+    xf0 = 2 * lam * math.sqrt(t_start)
+    C = pt.compute_capacity(pt.geometry.halfspace(0, xf0), mesh,
+                            **like).C_om[..., 0].cpu().numpy()
+    sq = 2 * np.sqrt(t_start)
+    if two_phase:
+        T1 = np.where(C <= xf0, 1.0 - erf(C / sq) / erf(lam), 0.0)
+        T2 = np.where(C >= xf0, -0.2 * (1 - erfc(C / sq) / erfc(lam)), 0.0)
+        z = np.zeros_like(T1)
+        u0 = tuple(torch.as_tensor(a, **like) for a in (T1, z, T2, z))
+        bc_b = pt.BorderConditions({"bottom": pt.Dirichlet(1.0),
+                                    "top": pt.Dirichlet(-0.2)})
+        return (s1.MovingLiquidDiffusionUnsteadyDiph(
+            phase, phase, bc_b, ic, dt, u0, mesh, "BE"), xf0, ic, lam)
+    Tw = np.maximum(1.0 - erf(C / sq) / erf(lam), 0.0)
+    u0 = (torch.as_tensor(Tw, **like), torch.zeros(Tw.shape, **like))
+    bc_b = pt.BorderConditions({"bottom": pt.Dirichlet(1.0),
+                                "top": pt.Dirichlet(0.0)})
+    cls = cls or s1.MovingLiquidDiffusionUnsteadyMono
+    return (cls(phase, bc_b, pt.Dirichlet(0.0), dt, u0, mesh, "BE"), xf0, ic,
+            lam)
+
+
+def height_problem(pt, nx, ny, device, diph=False):
+    """tests/test_stefan2d_height.py's flat front, f64: (solver, h0, ic)."""
+    from scipy.special import erf
+    from penguin_tpu_torch.solvers import stefan1d as s1
+    from penguin_tpu_torch.solvers import stefan2d_height as sh
+    like = dict(dtype=torch.float64, device=device)
+    lam = s1.find_lambda_stefan(1.0)
+    hf0 = 2 * lam * math.sqrt(0.05)
+    mesh = pt.Mesh((nx, ny), (0.6, 2.0), (0.0, 0.0))
+    C = pt.compute_capacity(pt.geometry.halfspace(1, hf0), mesh, p=4, s=1,
+                            **like).C_om[..., 1].cpu().numpy()
+    Tw = torch.as_tensor(np.maximum(1.0 - erf(C / (2 * np.sqrt(0.05)))
+                                    / erf(lam), 0.0), **like)
+    z = torch.zeros_like(Tw)
+    bc_b = pt.BorderConditions({"left": pt.Dirichlet(1.0),
+                                "right": pt.Dirichlet(0.0)})
+    ph = pt.Phase(None, None, lambda x, y, z, t: 0.0, 1.0)
+    ic = pt.InterfaceConditions(pt.ScalarJump(1.0, 1.0, 0.0),
+                                pt.FluxJump(1.0, 1.0, 1.0))
+    if diph:
+        s = sh.MovingLiquidDiffusionUnsteadyDiph2D(ph, ph, bc_b, ic, 2e-3,
+                                                   (Tw, z, z, z), mesh, "BE")
+    else:
+        s = sh.MovingLiquidDiffusionUnsteadyMono2D(ph, bc_b, pt.Dirichlet(0.0),
+                                                   2e-3, (Tw, z), mesh, "BE")
+    return s, torch.full((nx,), hf0, **like), ic
+
+
+def phase_stefan_more(pt, device, rows, nx1d=STEF1D_NX, height=HEIGHT_N,
+                      nx_species=SPECIES_N):
+    log("== phase 12: the 1D, height-function and species solvers on the "
+        "card (f64)")
+    from penguin_tpu_torch.solvers import stefan1d as s1
+    want = stefan1d_convergence_row(nx1d)
+    dt = 0.4 * (2.0 / nx1d) * 0.05
+    for two_phase in (False, True):
+        s, xf0, ic, lam = stefan1d_problem(pt, nx1d, dt, 0.05, device,
+                                           two_phase)
+        sync(device)
+        t0 = time.perf_counter()
+        if two_phase:
+            s.solve(xf0, 0.05, 0.13, newton_params=(200, 1e-10, 1e-10, 1.0),
+                    p=6, s=1)
+        else:
+            s.solve(xf0, 0.05, 0.13, ic,
+                    newton_params=(200, 1e-10, 1e-10, 1.0))
+        sync(device)
+        wall = time.perf_counter() - t0
+        t_eff = 0.05 + len(s.xf_log) * dt
+        err = abs(s.xf - 2 * lam * math.sqrt(t_eff))
+        rec = want[1 if two_phase else 0]
+        label = "two-phase" if two_phase else "one-phase"
+        its = int(s.newton_iters.sum())
+        log(f"1D {label} Stefan, nx={nx1d}, dt={dt:.4e}, t 0.05 -> 0.13: "
+            f"{len(s.xf_log)} slabs, {its} Newton iterations in {wall:.2f} s "
+            f"({wall / its * 1e3:.2f} ms each); front error {err:.4e} "
+            f"against the recorded {rec:.4e} (gate 1.5x); max Newton "
+            f"residual {s.newton_errs.max():.2e} (gate 1e-8)")
+        if err > 1.5 * rec or s.newton_errs.max() >= 1e-8:
+            raise AssertionError(f"1D {label} Stefan gates failed")
+        if not two_phase:
+            rows["stefan1d"] = dict(solver=s, ic=ic, wall=wall, iters=its,
+                                    dt=dt)
+    # tests/test_stefan1d.py's coupled Newton and adaptive driver
+    s, xf0, ic, lam = stefan1d_problem(
+        pt, 48, 2e-3, 0.05, device,
+        cls=s1.MovingLiquidDiffusionUnsteadyMonoCoupled)
+    s.solve(xf0, 0.05, 0.08, ic, newton_params=(30, 1e-9, 1e-9, 1.0))
+    ex = 2 * lam * math.sqrt(0.05 + len(s.xf_log) * 2e-3)
+    log(f"1D coupled Newton, nx=48: front {s.xf:.6f} against {ex:.6f} (gate "
+        f"0.03), Newton iterations {s.newton_iters.tolist()}, max residual "
+        f"{s.newton_errs.max():.2e} (gate 1e-6)")
+    if not (s.xf > xf0 + 0.005 and abs(s.xf - ex) < 0.03
+            and s.newton_errs.max() < 1e-6):
+        raise AssertionError("1D coupled Newton gates failed")
+    s, xf0, ic, lam = stefan1d_problem(pt, 48, 5e-4, 0.05, device)
+    s1.solve_stefan_1d_adaptive(s, xf0, 0.05, 0.08, ic,
+                                newton_params=(100, 1e-10, 1e-10, 1.0),
+                                cfl_target=0.4, dt_min=1e-5, dt_max=5e-3,
+                                max_steps=300)
+    ex = 2 * lam * math.sqrt(0.08)
+    log(f"1D adaptive dt, nx=48: {s.n_steps} steps, t_final {s.t_final!r} "
+        f"(t_end 0.08), front {s.xf:.6f} against {ex:.6f} (gate 0.03)")
+    if abs(s.t_final - 0.08) > 1e-9 or abs(s.xf - ex) > 0.03:
+        raise AssertionError("1D adaptive driver gates failed")
+    # the height-function flat front at 4x tests/test_stefan2d_height.py's
+    # resolution, with its gates
+    nxh, nyh = height
+    for diph in (False, True):
+        s, h0, ic = height_problem(pt, nxh, nyh, device, diph)
+        t0 = time.perf_counter()
+        args = (h0, 0.0, (HEIGHT_STEPS - 0.5) * 2e-3) + (
+            () if diph else (ic,))
+        s.solve(*args, newton_params=(60, 1e-9, 1e-9, 1.0), p=4, s=1)
+        sync(device)
+        wall = time.perf_counter() - t0
+        lam = s1.find_lambda_stefan(1.0)
+        ex = 2 * lam * math.sqrt(0.05 + s.height_log.shape[0] * 2e-3)
+        mono = bool(np.all(np.diff(s.height_log.mean(axis=1)) > -1e-10))
+        x2 = float(s.x[2].abs().max()) if diph else 0.0
+        label = "diph" if diph else "mono"
+        log(f"height-function {label} {nxh} × {nyh}, "
+            f"{s.height_log.shape[0]} steps in "
+            f"{wall:.2f} s: iterations/step {s.newton_iters.tolist()}; mean "
+            f"height {s.heights.mean():.5f} against {ex:.5f} (gate 0.03), "
+            f"std {s.heights.std():.2e} (gate 5e-3), monotone {mono}"
+            + (f", max|T2| {x2:.1e} (gate 1e-6)" if diph else ""))
+        if not (mono and abs(s.heights.mean() - ex) < 0.03
+                and s.heights.std() < 5e-3 and x2 < 1e-6):
+            raise AssertionError(f"height-function {label} gates failed")
+    # tests/test_concentration_binary.py's static interfaces at nx_species
+    from penguin_tpu_torch.solvers import binary, concentration
+    like = dict(dtype=torch.float64, device=device)
+    nxs = nx_species
+    mesh = pt.Mesh((nxs,), (8.0,), (0.0,))
+    z = torch.zeros(mesh.np_shape, **like)
+    ph = pt.Phase(None, None, lambda x, y, z, t: 0.0, 1.0)
+    body, body_c = (lambda x, t: x - 4.0), (lambda x, t: -(x - 4.0))
+    s = concentration.DiffusionUnsteadyConcentration(
+        ph, ph, pt.BorderConditions({"bottom": pt.Dirichlet(0.0),
+                                     "top": pt.Dirichlet(1.0)}),
+        pt.InterfaceConditions(pt.ScalarJump(1.0, 1.0, 0.5),
+                               pt.FluxJump(1.0, 1.0, 0.0)),
+        2e-3, (z, z, z + 1.0, z + 1.0), mesh)
+    t0 = time.perf_counter()
+    s.solve(body, body_c, 0.0, 0.05, method="direct")
+    C1, C1g, C2, C2g = (a.cpu().numpy() for a in s.x)
+    n1 = nxs // 2
+    ok = (np.isfinite(C1).all() and np.isfinite(C2).all()
+          and np.abs(C1g - 0.5).max() < 1e-10
+          and np.abs(C2g - 0.5).max() < 1e-10
+          and C1[1:n1].min() > -1e-8 and C1[1:n1].max() < 0.5 + 1e-8
+          and C2[n1 + 1:nxs - 1].max() < 1.0 + 1e-8
+          and C2[n1 + 1:nxs - 1].min() > 0.5 - 1e-8)
+    log(f"DiffusionUnsteadyConcentration, static interface, nx={nxs}, 26 "
+        f"slabs in {time.perf_counter() - t0:.2f} s: C1 in "
+        f"[{C1[1:n1].min():.3e}, {C1[1:n1].max():.6f}], C2 in [{C2[n1 + 1:nxs - 1].min():.6f}, "
+        f"{C2[n1 + 1:nxs - 1].max():.6f}], max|Cγ - Cm| "
+        f"{max(np.abs(C1g - 0.5).max(), np.abs(C2g - 0.5).max()):.1e}")
+    if not ok:
+        raise AssertionError("concentration gates failed")
+    bc_T = pt.BorderConditions({"bottom": pt.Dirichlet(-0.5),
+                                "top": pt.Dirichlet(0.5)})
+    bc_C = pt.BorderConditions({"bottom": pt.Dirichlet(0.2),
+                                "top": pt.Dirichlet(0.8)})
+    s = binary.DiffusionUnsteadyBinary(ph, ph, ph, ph, bc_T, bc_C, 2e-3,
+                                       (z,) * 8, mesh, "BE", Tm=0.1,
+                                       m_liq=-0.5, k_part=0.6)
+    t0 = time.perf_counter()
+    s.solve(body, body_c, 0.0, 0.02, method="direct")
+    T1w, T1g, T2w, T2g, C1w, C1g, C2w, C2g = (a.cpu().numpy() for a in s.x)
+    sel = pt.compute_capacity(pt.geometry.halfspace(0, 4.0), mesh,
+                              **like).cell_types.cpu().numpy() == -1
+    gaps = [np.abs(T1g - (0.1 - 0.5 * C1g))[sel].max(),
+            np.abs(T2g - T1g)[sel].max(), np.abs(C2g - 0.6 * C1g)[sel].max()]
+    finite = all(np.isfinite(a).all() for a in (T1w, T2w, C1w, C2w))
+    log(f"DiffusionUnsteadyBinary, static interface, nx={nxs}, 11 slabs in "
+        f"{time.perf_counter() - t0:.2f} s: {int(sel.sum())} cut cells; "
+        f"liquidus, continuity, partition gaps {gaps} (gate 1e-8)")
+    if not (finite and sel.any() and max(gaps) < 1e-8):
+        raise AssertionError("binary gates failed")
+
+
+def stefan_cases(pt, device):
+    """(label, run) pairs for the phase-change path's card-vs-CPU comparison
+    in f64: each run returns (tuple of tensors, iteration counts)."""
+    from penguin_tpu_torch.front_tracking import polyline_normals
+    from penguin_tpu_torch.solvers import binary, concentration
+    from penguin_tpu_torch.solvers import stefan1d as s1
+    from penguin_tpu_torch.solvers import stefan2d as s2
+    f64 = torch.float64
+    n, nm = 24, 24
+    few = (3, 1e-6, 1e-6, 1.0)
+    cases = []
+
+    def as_t(a):
+        return torch.as_tensor(np.asarray(a), dtype=f64)
+
+    def mono1d(cls, strategy):
+        def run():
+            s, xf0, ic, _ = stefan1d_problem(pt, 24, 2e-3, 0.05, device,
+                                             cls=getattr(s1, cls))
+            kw = {} if strategy is None else {"lr_strategy": strategy}
+            s.solve(xf0, 0.05, 0.05 + 1.5 * 2e-3, ic,
+                    newton_params=(30, 1e-10, 1e-10, 1.0), **kw)
+            return s.x + (as_t(s.xf_log),), s.newton_iters.tolist()
+        return run
+
+    cases.append(("1D Mono, secant steps", mono1d(
+        "MovingLiquidDiffusionUnsteadyMono", "secant")))
+    cases.append(("1D MonoCoupled", mono1d(
+        "MovingLiquidDiffusionUnsteadyMonoCoupled", None)))
+
+    def diph1d():
+        s, xf0, _, _ = stefan1d_problem(pt, 24, 1e-3, 0.05, device, True)
+        s.solve(xf0, 0.05, 0.05 + 1.5e-3,
+                newton_params=(200, 1e-10, 1e-10, 1.0))
+        return s.x + (as_t(s.xf_log),), s.newton_iters.tolist()
+
+    cases.append(("1D Diph", diph1d))
+
+    def adaptive():
+        s, xf0, ic, _ = stefan1d_problem(pt, 24, 5e-4, 0.05, device)
+        s1.solve_stefan_1d_adaptive(s, xf0, 0.05, 0.054, ic,
+                                    newton_params=(100, 1e-10, 1e-10, 1.0),
+                                    cfl_target=0.4, dt_min=1e-5,
+                                    dt_max=5e-3)
+        return s.x + (as_t([s.xf, s.t_final]),), [s.n_steps]
+
+    cases.append(("1D adaptive driver", adaptive))
+
+    def mono2d(jac, bc_i=None):
+        def run():
+            s, front, ic = frank_problem(pt, n, nm, f64, device, bc_i=bc_i)
+            s.solve(front, 0.0, 0.5 * STEF_DT, ic, newton_params=few,
+                    interior_fluid=False, jac=jac)
+            hist = as_t(np.nan_to_num(s.residual_hist, nan=-1.0))
+            return (s.x + (s.markers, hist),
+                    s.iters_log.tolist() + s.krylov_iters.tolist())
+        return run
+
+    cases.append(("StefanMono2D intercept", mono2d("intercept")))
+    cases.append(("StefanMono2D autodiff", mono2d("autodiff")))
+    cases.append(("StefanMono2D Gibbs-Thomson eps_k 0.1, eps_v 0.2",
+                  mono2d("intercept", pt.GibbsThomson(0.0, 0.1, 0.2))))
+
+    def geom():
+        s, front, ic = frank_problem(pt, n, nm, f64, device)
+        s.solve_geom(front, 0.0, 0.5 * STEF_DT, ic, newton_params=few,
+                     interior_fluid=False)
+        return s.x + (s.markers,), s.iters_log.tolist()
+
+    cases.append(("StefanMono2D.solve_geom", geom))
+
+    def diph2d():
+        s, front, _ = frank_problem(pt, n, nm, f64, device, diph=True)
+        s.solve(front, 0.0, 0.5 * STEF_DT, newton_params=few,
+                latent_sign=-1.0, enable_stencil_fusion=False,
+                jac="intercept")
+        return s.x + (s.markers,), s.iters_log.tolist()
+
+    cases.append(("StefanDiph2D intercept", diph2d))
+
+    def jacobians():
+        s, front, _ = frank_problem(pt, n, nm, f64, device)
+        mk = front.markers
+        normals = polyline_normals(mk)
+        d = 0.05 * torch.cos(3 * torch.arange(nm, dtype=f64, device=device))
+        budget = s2._auto_band_budget(mk, s.mesh, STEF_DT, -1.0, "auto")
+        out = [s2._jacobian_fn(jac, s.mesh, -1.0, -1.0, True, 4, 1, b)(
+            d, mk, normals) for jac, b in (("autodiff", None),
+                                           ("autodiff", budget),
+                                           ("intercept", None))]
+        slab = s._slab_solver(-1.0, budget, 4, 1, "auto", 1e-9, 400)
+        T, flux, Va, Vb, its = slab(s.u0, mk, mk + d[:, None] * normals, 0.0)
+        F = s2._box3_filter(Va - Vb - flux)
+        return tuple(out) + (F,) + T, [its]
+
+    cases.append(("both volume Jacobians (dense, band) and one GN residual",
+                  jacobians))
+
+    def height(diph):
+        def run():
+            s, h0, ic = height_problem(pt, 6, 24, device, diph)
+            args = (h0, 0.0, 1e-3) + (() if diph else (ic,))
+            s.solve(*args, newton_params=(60, 1e-9, 1e-9, 1.0))
+            return s.x + (as_t(s.height_log),), s.newton_iters.tolist()
+        return run
+
+    cases.append(("height-function Mono2D", height(False)))
+    cases.append(("height-function Diph2D", height(True)))
+
+    def species():
+        like = dict(dtype=f64, device=device)
+        mesh = pt.Mesh((24,), (8.0,), (0.0,))
+        z = torch.zeros(mesh.np_shape, **like)
+        ph = pt.Phase(None, None, lambda x, y, z, t: 0.0, 1.0)
+        bc = pt.BorderConditions({"bottom": pt.Dirichlet(0.0),
+                                  "top": pt.Dirichlet(1.0)})
+        body = lambda x, t: x - 4.1 - 5.0 * t  # noqa: E731
+        body_c = lambda x, t: 4.1 + 5.0 * t - x  # noqa: E731
+        c = concentration.DiffusionUnsteadyConcentration(
+            ph, ph, bc, pt.InterfaceConditions(pt.ScalarJump(1.0, 1.0, 0.5),
+                                               pt.FluxJump(1.0, 1.0, 0.0)),
+            2e-3, (z, z, z + 1.0, z + 1.0), mesh)
+        c.solve(body, body_c, 0.0, 0.01)
+        b = binary.DiffusionUnsteadyBinary(ph, ph, ph, ph, bc, bc, 2e-3,
+                                           (z,) * 8, mesh, "BE", Tm=0.1,
+                                           m_liq=-0.5, k_part=0.6)
+        b.solve(body, body_c, 0.0, 0.01)
+        return c.x + b.x, []
+
+    cases.append(("Concentration and Binary, moving interface", species))
+    return cases
+
+
+def phase_stefan_card_vs_cpu(pt, device):
+    log("== phase 13: the phase-change path, card against the CPU path "
+        "(f64)")
+    card = stefan_cases(pt, device)
+    cpu = stefan_cases(pt, torch.device("cpu"))
+    for (label, run_g), (_, run_c) in zip(card, cpu):
+        xg, hg = run_g()
+        xc, hc = run_c()
+        err = max((a.cpu() - b).abs().max().item() / max(
+            b.abs().max().item(), 1.0) for a, b in zip(xg, xc))
+        log(f"{label}: max|x_card - x_cpu| / scale {err:.3e} (tol 1e-8); "
+            f"iterations card {hg} cpu {hc}")
+        if not err <= 1e-8 or hg != hc:
+            raise AssertionError(f"{label}: card and CPU disagree")
+
+
+def stefan_times(pt, rows, smi, device):
+    """The flagship's GN iteration at 256², split into slab capacity build,
+    inner solve, intercept Jacobian and LM update, with kernels, host syncs,
+    device busy share and peak memory; ms per GN iteration of the 64²
+    autodiff leg; ms per Newton iteration of the 1D solve."""
+    from penguin_tpu_torch.capacity import compute_capacity_spacetime
+    from penguin_tpu_torch.front_tracking import polyline_normals
+    from penguin_tpu_torch.solvers import stefan2d as s2
+    from penguin_tpu_torch.solvers.moving_diffusion import (
+        solve_moving_mono_step)
+    s = rows["stefan"]["solver"]
+    its = s.iters_log.copy()
+    mesh, dt = s.mesh, s.dt
+    n = mesh.n[0]
+    mk_a = torch.as_tensor(s.marker_log[-2], device=device)
+    normals = polyline_normals(mk_a)
+    # one step's growth, the size of a converged displacement
+    d = torch.full((mk_a.shape[0],), frank_radius(s.markers)[0]
+                   - frank_radius(mk_a)[0], dtype=mk_a.dtype, device=device)
+    mk_b = mk_a + d[:, None] * normals
+    budget = s._band_budget
+    src = s.phase.source
+    lam = torch.full((), 1e-4, dtype=mk_a.dtype, device=device)
+    max_disp = 0.5 * min(mesh.h)
+    state = {}
+
+    def build():
+        state["cap"] = compute_capacity_spacetime(
+            s2._st_marker_body, mesh, 0.0, dt, p=4, s=1,
+            params=(mk_a, mk_b, dt, -1.0), band_budget=budget,
+            dtype=mk_a.dtype, device=device)
+
+    def solve():
+        state["T"] = solve_moving_mono_step(
+            state["cap"], 1.0, src, s.bc_i, s.border, s.x, 0.0, dt, "BE",
+            tol=1e-9, maxiter=400, method="auto")[0]
+
+    def jac():
+        state["J"] = s2._intercept_jacobian(d, mk_a, normals, mesh, 1.0,
+                                            True)
+
+    def lm():
+        flux, Va, Vb = s2._slab_flux(state["cap"], 1.0, state["T"])
+        state["F"] = s2._box3_filter(Va - Vb - flux).reshape(-1)
+        state["d"] = s2._lm_step(state["J"], state["F"], d, lam, 1.0, 5, 1,
+                                 max_disp)
+
+    def iteration():
+        build()
+        solve()
+        jac()
+        lm()
+        # the GN loop's one read per iteration
+        return bool(torch.linalg.norm(state["F"]) > 1e-4)
+
+    iteration()
+    parts = {name: [cuda_ms(fn, 1) for _ in range(3)]
+             for name, fn in (("build", build), ("solve", solve),
+                              ("jacobian", jac), ("LM", lm))}
+    whole = [cuda_ms(iteration, 1) for _ in range(3)]
+    n_kernels, busy = _profile_kernels(iteration)
+    syncs = count_syncs(iteration)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    iteration()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    fmt = lambda v: ", ".join(f"{m:.2f}" for m in v)  # noqa: E731
+    log(f"flagship {n}² × {mk_a.shape[0]} markers f32, one GN iteration "
+        f"(band budget {budget}), ms, 3 repeats: slab capacity build "
+        f"{fmt(parts['build'])}; inner solve (reduced CG) "
+        f"{fmt(parts['solve'])}; intercept Jacobian {fmt(parts['jacobian'])}"
+        f"; flux, residual and LM update {fmt(parts['LM'])}; whole "
+        f"iteration {fmt(whole)}; {n_kernels} kernels ({busy:.2f} ms of "
+        f"device time, busy {busy / min(whole):.1%}), {syncs} host syncs per "
+        f"iteration; GN iterations/step in phase 11 {its.tolist()} (mean "
+        f"{its.mean():.2f}), {rows['stefan']['wall'] * 1e3 / its.sum():.1f} ms "
+        f"per GN iteration over phase 11's run with its set-up; peak memory "
+        f"of an iteration above the state {peak:.0f} MiB [{smi}]")
+    ad = rows["stefan_ad"]
+    sa = ad["solver"]
+    mk = torch.as_tensor(sa.marker_log[-2], device=device)
+    nr = polyline_normals(mk)
+    dz = torch.zeros(mk.shape[0], dtype=mk.dtype, device=device)
+    bud = sa._band_budget
+    jac_ms = [cuda_ms(lambda: s2._autodiff_jacobian(
+        dz, mk, nr, sa.mesh, -1.0, -1.0, True, 4, 1, bud), 1)
+        for _ in range(3)]
+    log(f"autodiff leg {sa.mesh.n[0]}² × {mk.shape[0]} markers f32: "
+        f"{ad['wall'] * 1e3 / ad['iters']:.1f} ms per GN iteration over "
+        f"phase 11's {ad['iters']} (set-up included); the autodiff Jacobian "
+        f"alone (band budget {bud}, {s2._JAC_CHUNK} tangents a pass) "
+        f"{fmt(jac_ms)} ms [{smi}]")
+    r1 = rows["stefan1d"]
+    s1d = r1["solver"]
+    slab = s1d._mono_slab_solve(0.1, r1["dt"], 1.0, 6, 1)
+    xf = torch.full((), s1d.xf, dtype=torch.float64, device=device)
+    one = [cuda_ms(lambda: slab(s1d.x, xf, xf + 1e-3), 3) for _ in range(3)]
+    log(f"1D one-phase Stefan nx={s1d.mesh.n[0]} f64: "
+        f"{r1['wall'] * 1e3 / r1['iters']:.2f} ms per Newton iteration over "
+        f"phase 12's {r1['iters']}; one slab build, direct solve and "
+        f"residual alone {fmt(one)} ms [{smi}]")
+
+
 def count_syncs(fn):
     """Run ``fn`` with CUDA sync debugging on; returns the number of calls
     that waited for the device."""
@@ -1056,7 +1741,7 @@ def moving_times(pt, rows, smi, device):
             cap, phase.diffusion, phase.source, bc_i, border, x_prev, t1, dt,
             "BE", tol=MOV_TOL, maxiter=2000)
 
-    nsl = 6
+    nsl = 3
 
     def slabs():
         s2, _, _ = osc_solver(pt, n, torch.float32, device)
@@ -1154,6 +1839,7 @@ def phase_times(pt, ks, rows, device, smi):
             f"span last={int(last)} max={int(mx)}{mean} [{smi}]")
     general_times(pt, rows, smi)
     moving_times(pt, rows, smi, device)
+    stefan_times(pt, rows, smi, device)
     kernels = []
     for name, shape, kernel, plain in (
             ("stencil5_matvec", (N2D + 1,) * 2, ks.stencil5_matvec,
@@ -1213,18 +1899,30 @@ def main():
 
     device = torch.device("cuda", torch.cuda.current_device())
     t_start = time.perf_counter()
-    smi = phase_environment(build)
-    errs = phase_kernels(ks, device)
-    rows, launches = phase_main_path(pt, FastHeatBE, ks, device)
-    phase_card_vs_cpu(pt, FastHeatBE, device, rows)
-    phase_general(pt, device, rows)
-    phase_general_card_vs_cpu(pt, device)
-    # the moving path launches neither kernel (nor does the JAX package's):
-    # their counts are those of phase 3
-    phase_moving(pt, device, rows)
-    phase_front(pt, device, rows)
-    phase_moving_card_vs_cpu(pt, device)
-    timed = phase_times(pt, ks, rows, device, smi)
+    took = {}
+
+    def timed_phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        took[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    smi = timed_phase("1", phase_environment, build)
+    errs = timed_phase("2", phase_kernels, ks, device)
+    rows, launches = timed_phase("3", phase_main_path, pt, FastHeatBE, ks,
+                                 device)
+    timed_phase("4", phase_card_vs_cpu, pt, FastHeatBE, device, rows)
+    timed_phase("5", phase_general, pt, device, rows)
+    timed_phase("6", phase_general_card_vs_cpu, pt, device)
+    # the moving and phase-change paths launch neither kernel (nor do the
+    # JAX package's): their counts are those of phase 3
+    timed_phase("8", phase_moving, pt, device, rows)
+    timed_phase("9", phase_front, pt, device, rows)
+    timed_phase("10", phase_moving_card_vs_cpu, pt, device)
+    timed_phase("11", phase_stefan, pt, ks, device, rows)
+    timed_phase("12", phase_stefan_more, pt, device, rows)
+    timed_phase("13", phase_stefan_card_vs_cpu, pt, device)
+    timed = timed_phase("7", phase_times, pt, ks, rows, device, smi)
     replaces = {"stencil5_matvec": "penguin_tpu/pallas_kernels/stencil.py:250",
                 "stencil7_matvec": "penguin_tpu/pallas_kernels/stencil.py:220"}
     kernels = [dict(name=t["name"], route="cuda",
@@ -1238,7 +1936,7 @@ def main():
                     # coefficients vary per cell (conv2d takes fixed weights)
                     library_ms=None) for t in timed]
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s on "
-        f"{smi}")
+        f"{smi}; seconds per phase: {took}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,7 +28,10 @@ def _tensors(xs, ys, xq, device):
 
 
 def _locate(xs, xq):
-    i = torch.clamp(torch.searchsorted(xs, xq) - 1, 0, xs.shape[0] - 2)
+    # a broadcast query (a quadrature sample grid) is a strided view;
+    # searchsorted copies it anyway and warns unless given it contiguous
+    i = torch.clamp(torch.searchsorted(xs, xq.contiguous()) - 1, 0,
+                    xs.shape[0] - 2)
     t = (xq - xs[i]) / (xs[i + 1] - xs[i])
     return i, t
 

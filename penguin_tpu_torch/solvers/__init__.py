@@ -1,6 +1,7 @@
 """Solvers of the PyTorch port: the scalar diffusion, advection-diffusion
 and Darcy solvers, the prescribed-motion (moving interface) diffusion
-solvers, and the benchmark's heat stepper."""
+solvers, the Stefan (phase-change) and species/binary-alloy solvers, and
+the benchmark's heat stepper."""
 
 from .diffusion import (
     DiffusionSteadyMono,
@@ -21,6 +22,19 @@ from .moving_diffusion import (
     MovingAdvDiffusionUnsteadyMono,
     MovingAdvDiffusionUnsteadyDiph,
 )
+from .stefan1d import (
+    MovingLiquidDiffusionUnsteadyMono,
+    MovingLiquidDiffusionUnsteadyMonoCoupled,
+    MovingLiquidDiffusionUnsteadyDiph,
+    solve_stefan_1d_adaptive,
+)
+from .stefan2d import StefanMono2D
+from .stefan2d_height import (
+    MovingLiquidDiffusionUnsteadyMono2D,
+    MovingLiquidDiffusionUnsteadyDiph2D,
+)
+from .concentration import DiffusionUnsteadyConcentration
+from .binary import DiffusionUnsteadyBinary
 from .heat_fast import FastHeatBE
 
 __all__ = [
@@ -39,5 +53,13 @@ __all__ = [
     "MovingDiffusionUnsteadyDiph",
     "MovingAdvDiffusionUnsteadyMono",
     "MovingAdvDiffusionUnsteadyDiph",
+    "MovingLiquidDiffusionUnsteadyMono",
+    "MovingLiquidDiffusionUnsteadyMonoCoupled",
+    "MovingLiquidDiffusionUnsteadyDiph",
+    "solve_stefan_1d_adaptive",
+    "StefanMono2D",
+    "MovingLiquidDiffusionUnsteadyMono2D",
+    "DiffusionUnsteadyConcentration",
+    "DiffusionUnsteadyBinary",
     "FastHeatBE",
 ]

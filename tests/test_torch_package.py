@@ -65,16 +65,27 @@ def test_public_names_follow_the_jax_package():
     taken over is a public name of the port's module too."""
     import importlib
     for mod in ("capacity", "operators", "front_tracking", "front_tracking1d",
-                "solvers.moving_diffusion", "linsolve", "utils"):
+                "solvers.moving_diffusion", "linsolve", "utils",
+                "solvers.stefan1d", "solvers.stefan2d",
+                "solvers.stefan2d_height", "solvers.concentration",
+                "solvers.binary"):
         j = importlib.import_module("penguin_tpu." + mod)
         t = importlib.import_module("penguin_tpu_torch." + mod)
         missing = [n for n in j.__all__ if not hasattr(t, n)]
         assert not missing, (mod, missing)
         assert set(j.__all__) <= set(t.__all__), mod
     from penguin_tpu_torch import solvers
+    import penguin_tpu.solvers as jsolvers
     for name in ("MovingDiffusionUnsteadyMono", "MovingDiffusionUnsteadyDiph",
                  "MovingAdvDiffusionUnsteadyMono",
-                 "MovingAdvDiffusionUnsteadyDiph"):
+                 "MovingAdvDiffusionUnsteadyDiph",
+                 "MovingLiquidDiffusionUnsteadyMono",
+                 "MovingLiquidDiffusionUnsteadyMonoCoupled",
+                 "MovingLiquidDiffusionUnsteadyDiph",
+                 "solve_stefan_1d_adaptive", "StefanMono2D",
+                 "MovingLiquidDiffusionUnsteadyMono2D",
+                 "DiffusionUnsteadyConcentration", "DiffusionUnsteadyBinary"):
+        assert name in jsolvers.__all__
         assert name in solvers.__all__ and hasattr(solvers, name)
 
 
@@ -143,6 +154,124 @@ def test_entry_points_default_to_cuda(name):
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
+
+
+def _phase_change_runs():
+    """One short solve of each phase-change and species class on CPU
+    tensors: name -> callable returning the tensors it produced."""
+    from penguin_tpu_torch.front_tracking import FrontTracker
+    from penguin_tpu_torch.solvers import (binary, concentration, stefan1d,
+                                           stefan2d, stefan2d_height)
+    like = dict(dtype=torch.float64, device="cpu")
+    ph = tpt.Phase(None, None, lambda x, y, z, t: 0.0, 1.0)
+    ic = tpt.InterfaceConditions(tpt.ScalarJump(1.0, 1.0, 0.0),
+                                 tpt.FluxJump(1.0, 1.0, 1.0))
+    d0 = tpt.Dirichlet(0.0)
+    m1 = tpt.Mesh((8,), (2.0,), (0.0,))
+    bc1 = tpt.BorderConditions({"bottom": tpt.Dirichlet(1.0), "top": d0})
+    z1 = torch.zeros(m1.np_shape, **like)
+    m2 = tpt.Mesh((8, 8), (8.0, 8.0), (0.0, 0.0))
+    bc2 = tpt.BorderConditions({k: tpt.Dirichlet(-0.3)
+                                for k in ("left", "right", "top", "bottom")})
+    z2 = torch.zeros(m2.np_shape, **like)
+    mh = tpt.Mesh((4, 8), (0.6, 2.0), (0.0, 0.0))
+    zh = torch.zeros(mh.np_shape, **like)
+    bch = tpt.BorderConditions({"left": tpt.Dirichlet(1.0), "right": d0})
+    one = (1, 1e-9, 1e-9, 1.0)
+
+    def mono1d(cls):
+        s = getattr(stefan1d, cls)(ph, bc1, d0, 1e-3, (z1 + 0.5, z1), m1)
+        s.solve(0.55, 0.0, 5e-4, ic, newton_params=one)
+        return s.x
+
+    def adaptive():
+        s = stefan1d.MovingLiquidDiffusionUnsteadyMono(
+            ph, bc1, d0, 1e-3, (z1 + 0.5, z1), m1)
+        stefan1d.solve_stefan_1d_adaptive(s, 0.55, 0.0, 1e-3, ic,
+                                          newton_params=one)
+        return s.x
+
+    def diph1d():
+        s = stefan1d.MovingLiquidDiffusionUnsteadyDiph(
+            ph, ph, bc1, ic, 1e-3, (z1 + 0.5, z1, z1, z1), m1)
+        s.solve(0.55, 0.0, 5e-4, newton_params=one)
+        return s.x
+
+    def mono2d(kind):
+        front = FrontTracker(**like).create_circle((4.0, 4.0), 1.5, n=8)
+        s = stefan2d.StefanMono2D(ph, bc2, d0, 0.02, (z2 - 0.1, z2), m2)
+        if kind == "geom":
+            s.solve_geom(front, 0.0, 0.01, ic, newton_params=one,
+                         interior_fluid=False)
+        else:
+            s.solve(front, 0.0, 0.01, ic, newton_params=one,
+                    interior_fluid=False, jac=kind)
+        return s.x + (s.markers, front.markers)
+
+    def diph2d():
+        front = FrontTracker(**like).create_circle((4.0, 4.0), 1.5, n=8)
+        s = stefan2d.StefanDiph2D(ph, ph, bc2, ic, 0.02, (z2, z2, z2 - 0.1,
+                                                          z2), m2)
+        s.solve(front, 0.0, 0.01, newton_params=one, latent_sign=-1.0,
+                jac="intercept")
+        return s.x + (s.markers,)
+
+    def height(cls):
+        h0 = torch.full((4,), 0.3, **like)
+        if cls == "mono":
+            s = stefan2d_height.MovingLiquidDiffusionUnsteadyMono2D(
+                ph, bch, d0, 1e-3, (zh + 0.5, zh), mh)
+            s.solve(h0, 0.0, 5e-4, ic, newton_params=one)
+        else:
+            s = stefan2d_height.MovingLiquidDiffusionUnsteadyDiph2D(
+                ph, ph, bch, ic, 1e-3, (zh + 0.5, zh, zh, zh), mh)
+            s.solve(h0, 0.0, 5e-4, newton_params=one)
+        return s.x
+
+    def species(kind):
+        body = (lambda x, t: x - 1.1, lambda x, t: 1.1 - x)
+        if kind == "concentration":
+            s = concentration.DiffusionUnsteadyConcentration(
+                ph, ph, bc1, ic, 1e-3, (z1, z1, z1 + 1, z1 + 1), m1)
+        else:
+            s = binary.DiffusionUnsteadyBinary(ph, ph, ph, ph, bc1, bc1, 1e-3,
+                                               (z1,) * 8, m1, Tm=0.1,
+                                               m_liq=-0.5, k_part=0.6)
+        s.solve(*body, 0.0, 5e-4)
+        return s.x
+
+    return {
+        "MovingLiquidDiffusionUnsteadyMono":
+            lambda: mono1d("MovingLiquidDiffusionUnsteadyMono"),
+        "MovingLiquidDiffusionUnsteadyMonoCoupled":
+            lambda: mono1d("MovingLiquidDiffusionUnsteadyMonoCoupled"),
+        "MovingLiquidDiffusionUnsteadyDiph": diph1d,
+        "solve_stefan_1d_adaptive": adaptive,
+        "StefanMono2D.solve-intercept": lambda: mono2d("intercept"),
+        "StefanMono2D.solve-autodiff": lambda: mono2d("autodiff"),
+        "StefanMono2D.solve_geom": lambda: mono2d("geom"),
+        "StefanDiph2D": diph2d,
+        "MovingLiquidDiffusionUnsteadyMono2D": lambda: height("mono"),
+        "MovingLiquidDiffusionUnsteadyDiph2D": lambda: height("diph"),
+        "DiffusionUnsteadyConcentration": lambda: species("concentration"),
+        "DiffusionUnsteadyBinary": lambda: species("binary"),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_phase_change_runs()))
+def test_phase_change_solvers_follow_their_inputs(name, monkeypatch):
+    """Each Stefan and species class, given CPU tensors (state and
+    markers), computes on the CPU and returns CPU tensors; with the default
+    device made to fail, no path of the solve asks for it."""
+    from penguin_tpu_torch import _device
+
+    def no_default():
+        raise AssertionError("a solve asked for the default device")
+
+    monkeypatch.setattr(_device, "default_device", no_default)
+    for t in _phase_change_runs()[name]():
+        assert t.device.type == "cpu" and t.dtype == torch.float64, name
+        assert torch.isfinite(t).all(), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
