@@ -7,7 +7,10 @@ geometry the JAX package computed; ``capacity_to_numpy`` goes the other way.
 A space-time slab capacity goes across the same way: its fields carry one
 more trailing axis (the two time slots), its cut moments are present or
 None, and its ``mesh`` is None.  ``markers_from_numpy`` and
-``markers_to_numpy`` carry a front's (n, 2) marker array.  This module
+``markers_to_numpy`` carry a front's (n, 2) marker array, and
+``state_from_numpy`` and ``state_to_numpy`` a solver state: the tuple of
+fields of a saddle-point state ``(uω_0, uγ_0, ..., uω_{N-1}, uγ_{N-1}, p)``
+(or of any solver's state tuple).  This module
 imports no JAX: the caller converts the JAX arrays with ``np.asarray``.
 """
 
@@ -20,7 +23,8 @@ from ._device import resolve_device
 from .capacity import Capacity
 
 __all__ = ["CAPACITY_FIELDS", "capacity_from_numpy", "capacity_to_numpy",
-           "markers_from_numpy", "markers_to_numpy"]
+           "markers_from_numpy", "markers_to_numpy", "state_from_numpy",
+           "state_to_numpy"]
 
 # data fields of a Capacity; the per-axis ones are tuples
 CAPACITY_FIELDS = ("A", "B", "V", "W", "C_om", "C_ga", "Gamma", "cell_types",
@@ -78,3 +82,17 @@ def markers_from_numpy(markers, device=None, dtype=torch.float64):
 
 def markers_to_numpy(markers):
     return markers.detach().cpu().numpy()
+
+
+def state_from_numpy(fields, device=None, dtype=torch.float64):
+    """A solver state (a sequence of numpy arrays, e.g. a Stokes state
+    ``(uω_0, uγ_0, ..., p)``) as a tuple of tensors on ``device``, by
+    default the CUDA device."""
+    device = resolve_device(device)
+    return tuple(torch.as_tensor(np.array(a), device=device).to(dtype)
+                 for a in fields)
+
+
+def state_to_numpy(state):
+    """The tuple of numpy arrays of a port solver state."""
+    return tuple(t.detach().cpu().numpy() for t in state)

@@ -1,7 +1,8 @@
 """Solvers of the PyTorch port: the scalar diffusion, advection-diffusion
 and Darcy solvers, the prescribed-motion (moving interface) diffusion
-solvers, the Stefan (phase-change) and species/binary-alloy solvers, and
-the benchmark's heat stepper."""
+solvers, the Stefan (phase-change) and species/binary-alloy solvers, the
+static, two-phase and moving-boundary Stokes solvers, and the benchmark's
+heat stepper."""
 
 from .diffusion import (
     DiffusionSteadyMono,
@@ -35,6 +36,9 @@ from .stefan2d_height import (
 )
 from .concentration import DiffusionUnsteadyConcentration
 from .binary import DiffusionUnsteadyBinary
+from .stokes import StokesMono, PinPressureGauge, MeanPressureGauge
+from .stokes_diph import StokesDiph
+from .moving_stokes import MovingStokesMono
 from .heat_fast import FastHeatBE
 
 __all__ = [
@@ -61,5 +65,10 @@ __all__ = [
     "MovingLiquidDiffusionUnsteadyMono2D",
     "DiffusionUnsteadyConcentration",
     "DiffusionUnsteadyBinary",
+    "StokesMono",
+    "PinPressureGauge",
+    "MeanPressureGauge",
+    "StokesDiph",
+    "MovingStokesMono",
     "FastHeatBE",
 ]

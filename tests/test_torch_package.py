@@ -2,6 +2,7 @@
 paths that once raised as not ported give results, it exports the JAX
 package's public names for what it has ported, its entry points default to
 the CUDA device,
+its solvers (the Stokes classes among them) follow their inputs' device,
 its condition values take the requested dtype, and its kernel build is
 keyed by the sources."""
 
@@ -27,7 +28,10 @@ def test_import_leaves_no_jax():
             "penguin_tpu_torch.utils, penguin_tpu_torch.interpolation, "
             "penguin_tpu_torch.convergence, penguin_tpu_torch.front_tracking, "
             "penguin_tpu_torch.front_tracking1d, "
-            "penguin_tpu_torch.solvers.moving_diffusion; "
+            "penguin_tpu_torch.solvers.moving_diffusion, "
+            "penguin_tpu_torch.solvers.stokes, "
+            "penguin_tpu_torch.solvers.stokes_diph, "
+            "penguin_tpu_torch.solvers.moving_stokes; "
             "print(any(m == 'jax' or m.startswith('jax.') "
             "for m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -68,7 +72,8 @@ def test_public_names_follow_the_jax_package():
                 "solvers.moving_diffusion", "linsolve", "utils",
                 "solvers.stefan1d", "solvers.stefan2d",
                 "solvers.stefan2d_height", "solvers.concentration",
-                "solvers.binary"):
+                "solvers.binary", "solvers.stokes", "solvers.stokes_diph",
+                "solvers.moving_stokes"):
         j = importlib.import_module("penguin_tpu." + mod)
         t = importlib.import_module("penguin_tpu_torch." + mod)
         missing = [n for n in j.__all__ if not hasattr(t, n)]
@@ -84,7 +89,9 @@ def test_public_names_follow_the_jax_package():
                  "MovingLiquidDiffusionUnsteadyDiph",
                  "solve_stefan_1d_adaptive", "StefanMono2D",
                  "MovingLiquidDiffusionUnsteadyMono2D",
-                 "DiffusionUnsteadyConcentration", "DiffusionUnsteadyBinary"):
+                 "DiffusionUnsteadyConcentration", "DiffusionUnsteadyBinary",
+                 "StokesMono", "PinPressureGauge", "MeanPressureGauge",
+                 "StokesDiph", "MovingStokesMono"):
         assert name in jsolvers.__all__
         assert name in solvers.__all__ and hasattr(solvers, name)
 
@@ -94,8 +101,9 @@ def _entry_points():
                                    front_tracking1d, interpolation, utils)
     from penguin_tpu_torch.convert import (capacity_from_numpy,
                                            capacity_to_numpy,
-                                           markers_from_numpy)
-    from penguin_tpu_torch.solvers import diffusion
+                                           markers_from_numpy,
+                                           state_from_numpy)
+    from penguin_tpu_torch.solvers import diffusion, stokes
     mesh = tpt.Mesh((6, 6), (2.0, 2.0))
     body = tpt.geometry.circle((1.0, 1.0), 0.6)
     bc_b = tpt.BorderConditions({"left": tpt.Dirichlet(0.0)})
@@ -140,6 +148,10 @@ def _entry_points():
             lambda: front_tracking1d.FrontTracker1D([0.5, 1.5]).markers,
         "markers_from_numpy":
             lambda: markers_from_numpy(np.zeros((4, 2))),
+        "state_from_numpy": lambda: state_from_numpy([np.zeros(3)])[0],
+        "VelocityBorder": lambda: stokes.VelocityBorder(
+            mesh, tpt.BorderConditions({"left": tpt.Dirichlet(0.0)}),
+            0).pos[0],
     }
 
 
@@ -270,6 +282,83 @@ def test_phase_change_solvers_follow_their_inputs(name, monkeypatch):
 
     monkeypatch.setattr(_device, "default_device", no_default)
     for t in _phase_change_runs()[name]():
+        assert t.device.type == "cpu" and t.dtype == torch.float64, name
+        assert torch.isfinite(t).all(), name
+
+
+def _stokes_runs():
+    """One short solve of each Stokes class on CPU capacities: name ->
+    callable returning the tensors it produced."""
+    from penguin_tpu_torch.solvers import (MovingStokesMono, StokesDiph,
+                                           StokesMono)
+    n = 6
+    mesh_p = tpt.Mesh((n, n), (1.0, 1.0))
+    meshes_u = (tpt.Mesh((n, n), (1.0, 1.0), (-0.5 / n, 0.0)),
+                tpt.Mesh((n, n), (1.0, 1.0), (0.0, -0.5 / n)))
+    lid = tpt.BorderConditions({"top": tpt.Dirichlet(1.0),
+                                "bottom": tpt.Dirichlet(0.0),
+                                "left": tpt.Dirichlet(0.0),
+                                "right": tpt.Dirichlet(0.0)})
+    walls = tpt.BorderConditions({k: tpt.Dirichlet(0.0) for k in
+                                  ("top", "bottom", "left", "right")})
+
+    def fluid(body):
+        caps = [tpt.compute_capacity(body, m, p=2, s=1, device="cpu")
+                for m in meshes_u + (mesh_p,)]
+        ops = [tpt.make_diffusion_ops(c) for c in caps]
+        return tpt.Fluid(mesh_u=meshes_u, mesh_p=mesh_p,
+                         capacity_u=tuple(caps[:2]), operator_u=tuple(ops[:2]),
+                         capacity_p=caps[2], operator_p=ops[2], mu=1.0,
+                         rho=1.0, f_u=lambda x, y, z: 0.0,
+                         f_p=lambda x, y, z: 0.0)
+
+    circle = tpt.geometry.circle((0.5, 0.5), 0.3)
+    full = tpt.geometry.full_domain(2)
+
+    def mono(method):
+        s = StokesMono(fluid(circle), (lid, walls))
+        if method == "schur_gmres":
+            s.solve(method=method, maxiter=5)
+        else:
+            s.solve_unsteady(0.1, 0.2, scheme="BE", method=method, maxiter=5)
+        M = s.make_block_preconditioner(schur="dct_cg", mom="cg_dst")
+        return s.x + M(s.x) + s.interface_force_traced(s.x)
+
+    def diph():
+        ic = tpt.InterfaceConditions(tpt.ScalarJump(1.0, 1.0, 0.0),
+                                     tpt.FluxJump(1.0, 1.0, 0.0))
+        s = StokesDiph(fluid(tpt.geometry.halfspace(1, 0.51)),
+                       fluid(tpt.geometry.halfspace(1, 0.51, -1.0)),
+                       (walls, walls), (lid, walls), ic)
+        return s.solve()
+
+    def moving(method):
+        s = MovingStokesMono(fluid(full), (lid, walls))
+        s.solve(lambda x, y, tau, params: full(x, y), 0.1, 0.0, 0.1,
+                method=method, maxiter=5)
+        return s.x
+
+    return {
+        "StokesMono.solve-schur_gmres": lambda: mono("schur_gmres"),
+        "StokesMono.solve_unsteady-pbicgstab": lambda: mono("pbicgstab"),
+        "StokesDiph": diph,
+        "MovingStokesMono.solve-lstsq": lambda: moving("lstsq"),
+        "MovingStokesMono.solve-fgmres": lambda: moving("fgmres"),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_stokes_runs()))
+def test_stokes_solvers_follow_their_capacities(name, monkeypatch):
+    """Each Stokes class on CPU capacities computes on the CPU and returns
+    finite CPU tensors; with the default device made to fail, no path of
+    the set-up, the preconditioner or the solve asks for it."""
+    from penguin_tpu_torch import _device
+
+    def no_default():
+        raise AssertionError("a solve asked for the default device")
+
+    monkeypatch.setattr(_device, "default_device", no_default)
+    for t in _stokes_runs()[name]():
         assert t.device.type == "cpu" and t.dtype == torch.float64, name
         assert torch.isfinite(t).all(), name
 
