@@ -33,12 +33,22 @@ f64 convergence over 32²-128², f32 at 512² and 256²), the lid cavity through
 and the 3D hydrostatic box (phase 14); the Galilean Couette of
 benchmarks/moving_couette_galilean.py through ``MovingStokesMono`` at 24²
 in f64 and 256² in f32 (phase 15); every class and preconditioner branch
-card against CPU in f64 (phase 16).  Last it times the steps, the slabs,
-the GN and Newton iterations, the Stokes solves, their preconditioner and
-Krylov iterations, and the kernels (warm and with the L2 flushed) with CUDA
-events (phase 7).  Every phase raises on failure, so the exit code is 0
-only if all passed.  Without a CUDA device it exits with an error before doing
-anything.
+card against CPU in f64 (phase 16).  Then the Navier-Stokes path: the DFG
+2D-1 channel of benchmarks/dfg_cylinder_steady.py at 256 × 128 in f32
+through ``NavierStokesMono.solve_steady_newton_krylov``, cut after the
+Newton steps whose inner fgmres converges (Cd and ΔP gated against JAX's
+at the same cut), 3 steps of DFG 2D-2 from rest by the implicit-Picard ``fgmres``
+stepper with its per-step force and probe record, and the JAX tests'
+Ghia Re=100 and chunked-AB2 gates in f64 (phase 17); 2 steps of the
+differentially heated cavity of benchmarks/differential_cavity.py at 64²
+through ``NavierStokesScalarCoupler.run_fast`` (Nu reported), the buoyant
+cavity and the stream-vorticity gates (phase 18); every class and path
+card against CPU in f64 (phase 19).  Last it times the steps, the slabs,
+the GN and Newton iterations, the Stokes and Navier-Stokes solves, their
+preconditioner and Krylov iterations, and the kernels (warm and with the
+L2 flushed) with CUDA events (phase 7).  Every phase raises on failure, so
+the exit code is 0 only if all passed.  Without a CUDA device it exits with
+an error before doing anything.
 
 The last two lines of standard output are a JSON object with one entry per
 kernel and then ``{"ok": true, "device": {...}}``.
@@ -172,11 +182,54 @@ GALILEAN_ERR = 0.004144348872151926   # its csv, moment cut flux, n = 24
 MOVING_STOKES_N = 256    # the same problem in f32 by fgmres, 1+1 slabs
 MOVING_STOKES_SLABS = 1  # (1+3 took 36.8 s, the last two stalled: cut)
 MOVING_STOKES_TOL = 1e-5
-# fgmres stalls on the later slabs here (2040 iterations, relres 3e-3-4e-2
-# on an H100): capped at the 600 iterations at which the JAX docstring
-# measured its convergence at n >= 32, to keep the phase short
+# fgmres converges the first slab and stalls on the later ones, in both
+# packages (the CPU, f32, 256²: JAX 90 iterations to 9.94e-6 then relres
+# 1.27e-2 at 600; the port 49 to 9.93e-6, then 6.69e-3; 2040 iterations do
+# not help, relres 3e-3-4e-2 on an H100).  The JAX docstring's relres 7e-7
+# at 600 iterations does not hold on this problem; the cap only keeps the
+# stalled slab short.  The first slab is gated
 MOVING_STOKES_MAXITER = 600
 STOKES_CVC_N = 48        # card against CPU, f64
+# the Navier-Stokes path (phases 17-19): the DFG channel of
+# benchmarks/dfg_cylinder_steady.py and dfg_cylinder_shedding.py at their
+# default 256 × 128 in f32
+DFG_N = (256, 128)
+DFG_L = (2.2, 0.41)
+DFG_R, DFG_C = 0.05, (0.2, 0.2)
+DFG_CD = 5.5810          # 2D-1 control-volume Cd, the JAX package's record
+                         # at 256 × 128 f32 (docs/BENCHMARKS.md:23)
+DFG_BOX = (0.10, 0.32, 0.08, 0.32)
+DFG_PROBES = [(0.15, 0.2), (0.25, 0.2)]
+# JFNK's inner fgmres runs to its 800 cap from the fourth Newton step on,
+# in both packages (JAX on the CPU, f32 with x64 off: 3, 11, 20, then 800
+# iterations a step; the port likewise), ~100 s a Newton step on an H100
+# (110-260 ms an fgmres iteration, 65-115 ms of it the jvp): the solve is
+# cut where the cap starts, at |R| < DFG_JFNK_CUT, after the three
+# uncapped updates (the benchmark asks 1e-10 within 25 steps)
+DFG_JFNK_ITERS = 25
+DFG_JFNK_CUT = 2.5e-3    # JAX f32 and the port reach 1.97e-3 and 1.91e-3
+# at that cut the pressure is not converged (ΔP ≈ 0.078 against DFG's
+# 0.117), so Cd and ΔP are held to JAX's at the same cut, in f64 on the CPU
+# (tests/test_torch_navierstokes.py::test_dfg_cut_force_matches_jax, which
+# holds the port there to 0.1% in f64 and 2% in f32): 2%, since f32
+# round-off moves an inexact Newton iterate's pressure by ~1%
+DFG_CUT_CD, DFG_CUT_DP = 5.5999, 0.07813
+DFG_CUT_TOL = 0.02
+DFG2_DT = 0.002
+DFG2_STEPS = 3           # from rest; St and Cd need 4000 steps: cut to 3
+DFG2_TOL = 1e-6
+# in f32 the Picard sweeps' fgmres stalls at its 120 iterations in both
+# packages (JAX, x64 off, on the CPU: relres 1.7e-4-1.9e-4; the port on an
+# H100: 4.1e-5 at most): gated just above the larger
+DFG2_STALL_TOL = 5e-4
+GHIA_N = 24              # tests/test_navierstokes.py:93
+CARRY_N = (32, 16)       # tests/test_navierstokes.py:334
+HEAT_N = 64              # benchmarks/differential_cavity.py, dt = 0.05: its
+HEAT_STEPS = 2           # 400 steps to t = 20 take 8-11 s each on an H100
+                         # (the momentum pgmres runs to its cap, as in JAX):
+                         # 2, cut for time
+NS_CVC_N = 12            # card against CPU, f64
+CVC_CHANNEL = (32, 16)
 
 
 def log(msg):
@@ -2020,9 +2073,16 @@ def phase_moving_stokes(pt, ks, device, rows, n=GALILEAN_N,
         f"DCT M), 1+{slabs} slabs in {wall:.2f} s with the set-up of M: "
         f"iterations/slab {s.krylov_iters.tolist()}, relres reached "
         f"{np.array2string(s.krylov_relres, precision=2)} (tol "
-        f"{MOVING_STOKES_TOL}); max|u_x - exact| {err:.4f}; finite {finite}")
+        f"{MOVING_STOKES_TOL}, gated on the first slab; the later ones "
+        f"stall in both packages); max|u_x - exact| {err:.4f}; finite "
+        f"{finite}")
     if not finite:
         raise AssertionError("moving Stokes 256² f32: non-finite field")
+    if not s.krylov_relres[0] <= MOVING_STOKES_TOL:
+        raise AssertionError(
+            f"moving Stokes 256² f32: the first slab ends at relres "
+            f"{s.krylov_relres[0]:.2e} after {s.krylov_iters[0]} iterations "
+            f"(both packages reach the tolerance there on the CPU)")
     rows["moving_stokes"] = dict(solver=s, dt=dt, x0=x0, n=big)
     launches = {"stencil5_matvec": ks.stencil5_matvec.launches,
                 "stencil7_matvec": ks.stencil7_matvec.launches}
@@ -2188,8 +2248,19 @@ def phase_stokes_card_vs_cpu(pt, device, n=STOKES_CVC_N):
                              16, 2.0, f64, device, mu=0.5),
     }
     host = {k: fluid_to(pt, v, cpu) for k, v in card.items()}
-    for (label, run_g, gate), (_, run_c, _) in zip(
-            stokes_cases(pt, device, card), stokes_cases(pt, cpu, host)):
+    compare_cases(stokes_cases(pt, device, card),
+                  stokes_cases(pt, cpu, host))
+
+
+def compare_cases(card, cpu):
+    """Run each (label, run, gate[, tol]) case on the card and on the CPU
+    and hold them to the gate: "eq", 1e-9 of scale with equal counts;
+    "resid", the card's solution in the CPU's system to ``tol`` (default
+    1e-9, 10x the solvers' tolerance); "resid=", that and equal counts."""
+    for case_g, case_c in zip(card, cpu):
+        label, run_g, gate = case_g[:3]
+        tol = case_g[3] if len(case_g) > 3 else 1e-9
+        run_c = case_c[1]
         if gate == "eq":
             xg, hg = run_g()[:2]
             xc, hc = run_c()[:2]
@@ -2203,12 +2274,559 @@ def phase_stokes_card_vs_cpu(pt, device, n=STOKES_CVC_N):
             xc, hc, res_c = run_c()
             res = res_c(tuple(t.cpu() for t in xg))
             log(f"{label}: the card's solution in the CPU's system: relres "
-                f"{res:.2e} (gate 1e-9, 10x the tolerance); the CPU's own "
-                f"{res_c(xc):.2e}; max|x_card - x_cpu| / scale "
+                f"{res:.2e} (gate {tol:.0e}, 10x the tolerance); the CPU's "
+                f"own {res_c(xc):.2e}; max|x_card - x_cpu| / scale "
                 f"{_rel(xg, xc):.2e}; counts card {hg} cpu {hc}"
                 + (" (gate: equal)" if gate == "resid=" else ""))
-            if not res <= 1e-9 or (gate == "resid=" and hg != hc):
+            if not res <= tol or (gate == "resid=" and hg != hc):
                 raise AssertionError(f"{label}: the card's solution fails")
+
+
+# ---------------------------------------------------------------------------
+# the Navier-Stokes path (phases 17-19)
+# ---------------------------------------------------------------------------
+
+def read_launches(ks, label):
+    """Both stencil counters, which must read 0: the Navier-Stokes path
+    reaches no TPU kernel (nor does the JAX package's)."""
+    launches = {"stencil5_matvec": ks.stencil5_matvec.launches,
+                "stencil7_matvec": ks.stencil7_matvec.launches}
+    log(f"stencil kernels launched on {label}: {launches} (it reaches no "
+        f"TPU kernel)")
+    if any(launches.values()):
+        raise AssertionError(f"{label} launched {launches}")
+
+
+def reset_launches(ks):
+    ks.stencil5_matvec.launches = 0
+    ks.stencil7_matvec.launches = 0
+
+
+def dfg_solver(pt, n, dtype, device, umax, ramp=None, fluid=None,
+               ghost=True):
+    """The DFG channel of benchmarks/dfg_cylinder_steady.py:55-115 (and
+    dfg_cylinder_shedding.py:55-160): 2.2 × 0.41 with the walls exactly at
+    y = 0 and 0.41 (origin shifted half a cell, ghost wall rows), a
+    cylinder of radius 0.05 at (0.2, 0.2) with the moment cut flux, a
+    parabolic inlet of peak ``umax`` (times a cosine start-up ramp over
+    ``ramp`` time units when given), an Outflow outlet, ν = 1e-3; on
+    ``fluid`` when given.  ``ghost=False``: the same channel as
+    tests/test_navierstokes.py:334 builds it, on the staggered meshes from
+    the origin with the solver's default wall rows and cut flux."""
+    from penguin_tpu_torch.solvers import NavierStokesMono
+    Lx, Ly = DFG_L
+    if fluid is None:
+        nx, ny = n
+        dx, dy = Lx / nx, Ly / ny
+        sx, sy = (0.0, 0.0) if ghost else (0.5 * dx, 0.5 * dy)
+        meshes = tuple(pt.Mesh((nx, ny), (Lx, Ly), (ox + sx, oy + sy))
+                       for ox, oy in ((-dx, -0.5 * dy), (-0.5 * dx, -dy),
+                                      (-0.5 * dx, -0.5 * dy)))
+        body = pt.geometry.complement(pt.geometry.circle(DFG_C, DFG_R))
+        caps = [pt.compute_capacity(body, m, p=4, s=1, dtype=dtype,
+                                    device=device,
+                                    cut_moments=True if ghost else "auto")
+                for m in meshes]
+        ops = [pt.make_diffusion_ops(c) for c in caps]
+        fluid = pt.Fluid(mesh_u=meshes[:2], mesh_p=meshes[2],
+                         capacity_u=tuple(caps[:2]),
+                         operator_u=tuple(ops[:2]), capacity_p=caps[2],
+                         operator_p=ops[2], mu=1e-3, rho=1.0,
+                         f_u=lambda x, y, z: 0.0, f_p=lambda x, y, z: 0.0)
+
+    def inflow(x, y, z=0.0, t=None):
+        prof = umax * 4.0 * (y / Ly) * (1.0 - y / Ly)
+        if ramp is None or t is None:
+            return prof
+        return prof * (1.0 if t >= ramp
+                       else 0.5 * (1.0 - math.cos(math.pi * t / ramp)))
+
+    noslip = pt.Dirichlet(0.0)
+    bc_ux = pt.BorderConditions({"left": pt.Dirichlet(inflow),
+                                 "right": pt.Outflow(), "bottom": noslip,
+                                 "top": noslip})
+    kw = dict(wall_row="ghost", cut_flux="moment") if ghost else {}
+    return NavierStokesMono(fluid, (bc_ux, stokes_walls(pt)), None, noslip,
+                            **kw)
+
+
+def dfg_record(s):
+    """The per-step record of dfg_cylinder_shedding.py: the rim force on
+    the body, the LSQ-probe pressure drop and the control-volume (Fs, M)."""
+    cvf = s.make_control_volume_recorder(DFG_BOX)
+    probe = s.make_pressure_probe(DFG_PROBES)
+
+    def record(x):
+        fx, fy = s.interface_force_traced(x)
+        pab = probe(x)
+        return (-fx, -fy, pab[0] - pab[1]) + cvf(x)
+
+    return record
+
+
+def ns_cavity(pt, n, dtype, device, Re, fluid=None):
+    """The lid cavity of tests/test_navierstokes.py:93 at Re (lid u = 1)."""
+    from penguin_tpu_torch.solvers import NavierStokesMono
+    fl = fluid or stokes_fluid(pt, None, n, 1.0, dtype, device, mu=1.0 / Re)
+    bc_ux = pt.BorderConditions({"left": pt.Dirichlet(0.0),
+                                 "right": pt.Dirichlet(0.0),
+                                 "bottom": pt.Dirichlet(0.0),
+                                 "top": pt.Dirichlet(1.0)})
+    return NavierStokesMono(fl, (bc_ux, stokes_walls(pt)), None,
+                            pt.Dirichlet(0.0))
+
+
+def phase_navier_stokes(pt, ks, device, rows, n=DFG_N,
+                        jfnk_iters=DFG_JFNK_ITERS, shed_steps=DFG2_STEPS,
+                        ghia_n=GHIA_N):
+    log("== phase 17: Navier-Stokes at full width on the card")
+    f32, f64 = torch.float32, torch.float64
+    reset_launches(ks)
+    # (a) DFG 2D-1: steady Re = 20 by JFNK (fgmres, DCT-CG Schur M)
+    s = dfg_solver(pt, n, f32, device, umax=0.3)
+    scale = 0.5 * 1.0 * 0.2 ** 2 * (2 * DFG_R)
+    sync(device)
+    t0 = time.perf_counter()
+    s.solve_steady_newton_krylov(max_iter=jfnk_iters, tol=DFG_JFNK_CUT,
+                                 lin_maxiter=800, restart=100)
+    sync(device)
+    wall = time.perf_counter() - t0
+    fcx, fcy = s.control_volume_force(DFG_BOX)
+    cd, cl = fcx / scale, fcy / scale
+    fx, fy = s.interface_force()
+    pa, pb = s.pressure_probe(DFG_PROBES)
+    hist, lin = s.residual_history, s.newton_lin_iters
+    log(f"DFG 2D-1 {n[0]}×{n[1]} f32, JFNK (fgmres restart 100, "
+        f"lin_maxiter 800) cut at |R| < {DFG_JFNK_CUT}: {wall:.2f} s for "
+        f"{len(lin)} Newton steps and "
+        f"{sum(lin)} fgmres iterations ({wall / max(len(lin), 1):.2f} s per "
+        f"Newton step, {wall / max(sum(lin), 1) * 1e3:.1f} ms per fgmres "
+        f"iteration with the rest); |R| per step "
+        f"{' '.join(f'{r:.1e}' for r in hist)}; fgmres iterations per step "
+        f"{lin}; control-volume Cd {cd:.4f} ({100 * (cd / DFG_CD - 1):+.2f}%"
+        f" from the converged JAX record {DFG_CD}), Cl {cl:+.5f}; "
+        f"rim-integral Cd {-fx / scale:.4f}, Cl {-fy / scale:+.5f}; ΔP by "
+        f"the LSQ probe {pa - pb:.4f} (DFG 0.1172-0.1176)")
+    # gated at the cut: each Newton step contracts |R| tenfold or more with
+    # an uncapped inner solve, as in JAX, and Cd and ΔP match JAX's at the
+    # same cut (the record's Cd needs the capped steps)
+    contracts = all(b_ < 0.1 * a_ for a_, b_ in zip(hist, hist[1:]))
+    dcd, ddp = cd / DFG_CUT_CD - 1, (pa - pb) / DFG_CUT_DP - 1
+    log(f"DFG 2D-1: cut at |R| {hist[-1]:.1e}; tenfold contraction every "
+        f"step {contracts}; against JAX f64 at the same cut (Cd "
+        f"{DFG_CUT_CD}, ΔP {DFG_CUT_DP}): Cd {100 * dcd:+.2f}%, ΔP "
+        f"{100 * ddp:+.2f}% (gate {100 * DFG_CUT_TOL:.0f}%)")
+    if not (contracts and hist[-1] < DFG_JFNK_CUT and max(lin) < 800
+            and abs(dcd) <= DFG_CUT_TOL and abs(ddp) <= DFG_CUT_TOL
+            and np.isfinite(cl)):
+        raise AssertionError(f"DFG 2D-1: Cd {cd}, |R| {hist}, its {lin}")
+    rows["dfg1"] = dict(solver=s, wall=wall, steps=len(lin), its=sum(lin))
+    # (b) DFG 2D-2 from rest: CN implicit Picard (2 sweeps of fgmres) with
+    # the per-step record
+    s = dfg_solver(pt, n, f32, device, umax=1.5, ramp=1.0, fluid=s.fluid)
+    record = dfg_record(s)
+    sync(device)
+    t0 = time.perf_counter()
+    s.solve_unsteady_picard(DFG2_DT, shed_steps * DFG2_DT, scheme="CN",
+                            picard_iters=2, method="fgmres", tol=DFG2_TOL,
+                            maxiter=120, record=record)
+    sync(device)
+    wall = time.perf_counter() - t0
+    its, rel = s.krylov_iters, s.krylov_relres
+    rec = np.array(s.record_log)
+    finite = bool(np.isfinite(rec).all()) and all(
+        bool(torch.isfinite(t).all()) for t in s.x)
+    log(f"DFG 2D-2 {n[0]}×{n[1]} f32, CN implicit Picard (2 fgmres sweeps, "
+        f"tol {DFG2_TOL}, maxiter 120), {shed_steps} steps of dt {DFG2_DT} "
+        f"from rest with the record: {wall:.2f} s "
+        f"({wall / shed_steps * 1e3:.1f} ms per step); last-sweep fgmres "
+        f"iterations per step mean "
+        f"{its.mean():.1f}, max {its.max()}; relres max {rel.max():.2e} "
+        f"(tol {DFG2_TOL}; gate {DFG2_STALL_TOL}, the f32 stall of both "
+        f"packages); at t = {shed_steps * DFG2_DT:.3f}: rim Cd "
+        f"{rec[0, -1] / (0.5 * 1.0 ** 2 * 2 * DFG_R):.4f}, ΔP "
+        f"{rec[2, -1]:.4f}, box momentum {rec[5, -1]:.5f}; record finite "
+        f"{finite}")
+    if not (finite and rel.max() <= DFG2_STALL_TOL):
+        raise AssertionError("DFG 2D-2: a gate failed")
+    rows["dfg2"] = dict(solver=s, wall=wall, steps=shed_steps, its=its)
+    # (c) the JAX tests' own gates at their sizes, f64
+    s = ns_cavity(pt, ghia_n, f64, device, 100.0)
+    sync(device)
+    t0 = time.perf_counter()
+    s.solve_steady(max_iter=40, tol=1e-9, method="lstsq")
+    sync(device)
+    wall = time.perf_counter() - t0
+    center = s.velocity(0)[ghia_n // 2, :ghia_n]
+    umin, lid = center.min().item(), abs(center[-1].item() - 1.0)
+    log(f"Ghia Re=100 cavity {ghia_n}² f64, lstsq Picard: "
+        f"{len(s.residual_history)} sweeps in {wall:.2f} s, last max|Δx| "
+        f"{s.residual_history[-1]:.1e}; centreline min u {umin:.4f} (gate "
+        f"-0.30..-0.12, Ghia -0.2109), |lid - 1| {lid:.1e}")
+    if not (-0.30 < umin < -0.12 and lid < 1e-8):
+        raise AssertionError("Ghia Re=100: a gate failed")
+    dt = 0.005
+    s1 = dfg_solver(pt, CARRY_N, f64, device, 0.3, ghost=False)
+    x_full = s1.solve_unsteady(dt, 8 * dt, scheme="CN", method="fgmres",
+                               tol=1e-10, maxiter=120)
+    s2 = dfg_solver(pt, None, f64, device, 0.3, fluid=s1.fluid,
+                    ghost=False)
+    x, cp = None, None
+    for k0 in (0, 4):
+        x = s2.solve_unsteady(dt, (k0 + 4) * dt, scheme="CN",
+                              method="fgmres", tol=1e-10, maxiter=120, x0=x,
+                              t_start=k0 * dt, conv_prev=cp)
+        cp = s2.conv_prev_out
+    equal = all(torch.equal(a, b) for a, b in zip(x, x_full))
+    log(f"chunked AB2 (4 + 4 fgmres CN steps, the convection carried) "
+        f"against 8 steps at once, {CARRY_N[0]}×{CARRY_N[1]} f64: bit-equal "
+        f"{equal}; fgmres iterations per step {s1.krylov_iters.tolist()}")
+    if not equal:
+        raise AssertionError("chunked AB2 carry: not bit-equal")
+    read_launches(ks, "the Navier-Stokes path (phase 17)")
+
+
+def heated_cavity(pt, n, device):
+    """benchmarks/differential_cavity.py: Ra = 1e3, Pr = 0.71, hot wall
+    x = 0 (+0.5), cold x = 1 (-0.5), adiabatic floor and lid, Boussinesq
+    buoyancy with the Picard coupling, f64."""
+    from penguin_tpu_torch.solvers import (NavierStokesMono,
+                                           NavierStokesScalarCoupler,
+                                           PicardCoupling)
+    Ra, Pr = 1.0e3, 0.71
+    nu = math.sqrt(Pr / Ra)
+    fl = stokes_fluid(pt, None, n, 1.0, torch.float64, device, mu=nu)
+    mom = NavierStokesMono(fl, (stokes_walls(pt), stokes_walls(pt)), None,
+                           pt.Dirichlet(0.0))
+    # the scalar border keys follow the plane classification of the scalar
+    # assembly: "bottom"/"top" are the x = 0 and x = 1 planes
+    bc_T = pt.BorderConditions({"bottom": pt.Dirichlet(0.5),
+                                "top": pt.Dirichlet(-0.5),
+                                "left": pt.Neumann(0.0),
+                                "right": pt.Neumann(0.0)})
+    cap = fl.capacity_p
+    T0 = (0.5 - torch.clamp(cap.C_om[..., 0], 0, 1)) * (cap.V > 0)
+    return NavierStokesScalarCoupler(
+        mom, cap, pt.make_diffusion_ops(cap), kappa=nu / Pr,
+        scalar_source=lambda x, y, z, t: 0.0, bc_scalar=bc_T,
+        bc_scalar_cut=pt.Dirichlet(0.0),
+        strategy=PicardCoupling(tol_T=1e-6, tol_U=1e-6, maxiter=8),
+        beta=1.0, gravity=(0.0, -1.0), T_ref=0.0, T0=(T0, T0))
+
+
+def phase_ns_scalar(pt, ks, device, rows, n=HEAT_N, steps=HEAT_STEPS):
+    log("== phase 18: the coupled scalar path on the card")
+    from penguin_tpu_torch.solvers import (NavierStokesMono,
+                                           NavierStokesScalarCoupler,
+                                           PassiveCoupling, StreamVorticity)
+    f64 = torch.float64
+    reset_launches(ks)
+    # (d) the differentially heated cavity by run_fast (pgmres), from the
+    # linear start, cut to a few steps: Nu is reported, not gated
+    c = heated_cavity(pt, n, device)
+    dt = 0.05
+    sync(device)
+    t0 = time.perf_counter()
+    c.run_fast(dt, (steps - 1) * dt, scheme="BE", picard_iters=2, tol=1e-6,
+               method="pgmres")
+    x_prev = c.x
+    c.run_fast(dt, steps * dt, scheme="BE", picard_iters=2, tol=1e-6,
+               method="pgmres")
+    sync(device)
+    wall = time.perf_counter() - t0
+    du = max((a - b).abs().max().item() for a, b in zip(c.x, x_prev)) / dt
+    d = 1.0 / n
+    T = c.T[0]
+    dTdx = (-1.5 * T[0, :] + 2.0 * T[1, :] - 0.5 * T[2, :]) / d
+    nu_hot = float(torch.mean(-dTdx[1:-1]))
+    log(f"differentially heated cavity Ra=1e3 {n}² f64, run_fast (2 Picard "
+        f"sweeps of pgmres a step): {steps} steps to t = {c.time:.2f} in "
+        f"{wall:.2f} s ({wall / steps * 1e3:.1f} ms per step); last step's "
+        f"max|du/dt| {du:.2e} (steady below 2e-5); momentum pgmres "
+        f"iterations (last sweep) "
+        f"{c.krylov_iters_u.tolist()}, relres "
+        f"{', '.join(f'{v:.2e}' for v in c.krylov_relres_u)} (maxiter 200), "
+        f"scalar {c.krylov_iters_T.tolist()}; hot-wall Nu "
+        f"{nu_hot:.4f} (de Vahl Davis 1.116 at steady)")
+    finite = all(bool(torch.isfinite(t).all()) for t in c.x + c.T)
+    log(f"heated cavity: gated on finite values only ({finite}); the Nu "
+        f"gate needs the steady state, which {steps} steps do not reach "
+        f"(cut for time)")
+    if not finite:
+        raise AssertionError("heated cavity: non-finite state")
+    rows["heated"] = dict(coupler=c, wall=wall, steps=steps)
+    # the JAX tests' gates at their sizes: buoyancy starts the circulation
+    # (tests/test_streamvort_nsscalar.py:283), enstrophy decays under
+    # stream-vorticity (:257)
+    m = 16
+    fl = stokes_fluid(pt, None, m, 1.0, f64, device, mu=1e-2)
+    mom = NavierStokesMono(fl, (stokes_walls(pt), stokes_walls(pt)), None,
+                           pt.Dirichlet(0.0))
+    cap = fl.capacity_p
+    T0 = torch.clamp(1.0 - cap.C_om[..., 0], 0.0, 1.0) * (cap.V > 0)
+    cp = NavierStokesScalarCoupler(
+        mom, cap, fl.operator_p, kappa=1e-2,
+        scalar_source=lambda x, y, z, t: 0.0,
+        bc_scalar=pt.BorderConditions({"left": pt.Dirichlet(1.0),
+                                       "right": pt.Dirichlet(0.0)}),
+        bc_scalar_cut=pt.Dirichlet(0.0), strategy=PassiveCoupling(),
+        beta=10.0, T0=(T0, T0))
+    cp.run(dt=0.01, t_end=0.05)
+    uy = cp.x[2]
+    left = uy[1:4, 1:m - 1].mean().item()
+    right = uy[m - 4:m - 1, 1:m - 1].mean().item()
+    log(f"buoyant cavity {m}² f64, passive coupling, 5 lstsq steps: mean "
+        f"u_y near the hot wall {left:+.2e}, near the cold wall "
+        f"{right:+.2e} (gate: up, down)")
+    if not (left > 0 and right < 0 and uy.abs().max().item() > 1e-4):
+        raise AssertionError("buoyant cavity: a gate failed")
+    k = 24
+    mesh = pt.Mesh((k, k), (1.0, 1.0), (0.0, 0.0))
+    cap = pt.compute_capacity(pt.geometry.full_domain(2), mesh, p=4, s=1,
+                              dtype=f64, device=device)
+    C = cap.C_om
+    w0 = torch.exp(-((C[..., 0] - 0.5) ** 2 + (C[..., 1] - 0.5) ** 2)
+                   / 0.01) * (cap.V > 0)
+    bords = stokes_walls(pt)
+    sv = StreamVorticity(cap, 0.05, 1e-3, pt.make_diffusion_ops(cap),
+                         bc_stream_border=bords, bc_vorticity_border=bords,
+                         omega0=(w0, torch.zeros_like(w0)))
+    e0 = float((w0 ** 2 * cap.V).sum())
+    sv.run(4)
+    e1 = float((sv.omega[0] ** 2 * cap.V).sum())
+    log(f"stream-vorticity Gaussian {k}² f64, 4 direct steps: enstrophy "
+        f"{e0:.4e} -> {e1:.4e} (gate: decays), max|u| "
+        f"{sv.velocity[0].abs().max().item():.3e}")
+    if not (0 < e1 < e0 and sv.velocity[0].abs().max().item() > 0):
+        raise AssertionError("stream-vorticity: a gate failed")
+    read_launches(ks, "the coupled scalar path (phase 18)")
+
+
+def ns_cases(pt, device, fluids):
+    """(label, run, gate) triples for the Navier-Stokes path's card-vs-CPU
+    comparison in f64, with the gates of :func:`stokes_cases`: "eq" (1e-9
+    of scale, equal counts) on the operators, diagnostics and the direct,
+    Picard and Newton paths; "resid" (the card's solution in the CPU's
+    system to 10x the tolerance) on the Krylov paths."""
+    from penguin_tpu_torch.linsolve import _ravel
+    from penguin_tpu_torch.solvers import (NavierStokesScalarCoupler,
+                                           PicardCoupling, StreamVorticity)
+    from penguin_tpu_torch.solvers.ns_scalar import (MonolithicCoupling,
+                                                     PassiveCoupling)
+
+    def relres(apply_fn, b):
+        def fn(out):
+            r = tuple(bb - aa for bb, aa in
+                      zip(b, apply_fn(tuple(out[:len(b)]))))
+            return (torch.linalg.vector_norm(_ravel(r)[0])
+                    / torch.linalg.vector_norm(_ravel(b)[0])).item()
+        return fn
+
+    f64 = torch.float64
+    g = torch.Generator().manual_seed(19)
+
+    def seeded(s, amp=1.0):
+        return tuple(amp * torch.randn(t.shape, generator=g,
+                                       dtype=f64).to(device)
+                     for t in s.zero_state())
+
+    def chan():
+        return dfg_solver(pt, None, f64, device, 0.3,
+                          fluid=fluids["channel"])
+
+    def cav():
+        return ns_cavity(pt, 0, f64, device, 100.0, fluid=fluids["cavity"])
+
+    base = chan()
+    r, q = seeded(base), seeded(base, 0.5)
+    cases = []
+
+    def ops():
+        s = base
+        out = s.conv_vectors(r) + s.make_picard_apply(r)(q)
+        out += s.nonlinear_residual(r, s.rhs_steady())
+        out += s._picard_rows(r, 0.01, 0.5)(q)
+        out += s.make_unsteady_rhs(0.01, 0.5)(
+            r, 0.1, 0.11, extra_mom=tuple(-c for c in s.conv_vectors(q)))
+        return out, None
+
+    cases.append(("conv_vectors, Picard applies, residual, AB2 rhs", ops,
+                  "eq"))
+
+    def diagnostics():
+        s = base
+        box = (0.1, 0.4, 0.08, 0.33)
+        x = tuple(0.1 * t for t in q)
+        out = (s.make_pressure_probe(DFG_PROBES)(x),)
+        out += s.make_control_volume_recorder(box)(x)
+        out += tuple(torch.tensor(v, dtype=f64) for v in
+                     s.control_volume_force(box, x=x)
+                     + tuple(s.pressure_probe(DFG_PROBES, x=x)))
+        return out, None
+
+    cases.append(("control-volume force (host, recorder), LSQ probes",
+                  diagnostics, "eq"))
+
+    def picard_steady():
+        s = cav()
+        s.solve_steady(max_iter=3, tol=1e-12)
+        return s.x, [len(s.residual_history)]
+
+    def newton():
+        s = cav()
+        s.solve_steady_newton(max_iter=3, tol=1e-11, picard_warmup=1)
+        return s.x, [len(s.residual_history)]
+
+    cases.append(("solve_steady lstsq, 3 sweeps", picard_steady, "eq"))
+    cases.append(("solve_steady_newton (jacfwd)", newton, "eq"))
+
+    def unsteady(method):
+        def run():
+            s = chan()
+            x0 = tuple(0.1 * t for t in r)
+            rec = s.make_pressure_probe(DFG_PROBES) if method == "direct" \
+                else None
+            t_end = 3 * 0.01 if method == "direct" else 0.01
+            s.solve_unsteady(0.01, t_end, scheme="CN", method=method, x0=x0,
+                             tol=1e-10, record=rec)
+            out = s.x + s.conv_prev_out
+            if rec is not None:
+                out += (torch.as_tensor(s.record_log),)
+            conv = s.conv_vectors(x0)
+            b = s.make_unsteady_rhs(0.01, 0.5)(
+                x0, 0.0, 0.01, extra_mom=tuple(-c for c in conv))
+            return (out, getattr(s, "krylov_iters", np.zeros(0)).tolist(),
+                    relres(s.make_unsteady_apply(0.01, 0.5), b))
+        return run
+
+    cases.append(("solve_unsteady AB2/CN direct, 3 steps with a record",
+                  unsteady("direct"), "eq"))
+    for method in ("pbicgstab", "pgmres", "fgmres"):
+        cases.append((f"solve_unsteady CN {method}, one step",
+                      unsteady(method), "resid"))
+
+    def picard(method):
+        def run():
+            s = chan()
+            x0 = tuple(0.1 * t for t in r)
+            if method == "lstsq":
+                s = cav()
+                x0 = tuple(0.1 * t for t in seeded(s))
+                s.solve_unsteady_picard(0.01, 0.02, scheme="CN",
+                                        picard_iters=2, x0=x0)
+                return s.x, None, None
+            s.solve_unsteady_picard(0.01, 0.01, scheme="CN", picard_iters=1,
+                                    method="fgmres", tol=1e-10,
+                                    maxiter=400, x0=x0)
+            conv = s.conv_vectors(x0)
+            b = s.make_unsteady_rhs(0.01, 0.5)(
+                x0, 0.0, 0.01, extra_mom=tuple(-0.5 * c for c in conv))
+            return (s.x, s.krylov_iters.tolist(),
+                    relres(s._picard_rows(x0, 0.01, 0.5), b))
+        return run
+
+    cases.append(("solve_unsteady_picard lstsq, 2 steps",
+                  picard("lstsq"), "eq"))
+    cases.append(("solve_unsteady_picard fgmres, one sweep",
+                  picard("fgmres"), "resid"))
+
+    def jfnk():
+        s = cav()
+        s.solve_steady_newton_krylov(max_iter=12, tol=1e-5)
+        b = s.rhs_steady()
+        return (s.x, None,
+                lambda out: float(torch.sqrt(sum(torch.sum(a * a) for a in
+                                                 s.nonlinear_residual(
+                                                     tuple(out), b)))))
+
+    cases.append(("solve_steady_newton_krylov (fgmres), |R| (gate 1e-4)",
+                  jfnk, "resid", 1e-4))
+
+    def streamvort():
+        cap = fluids["cavity"].capacity_p
+        C = cap.C_om
+        w0 = torch.exp(-((C[..., 0] - 0.45) ** 2 + (C[..., 1] - 0.5) ** 2)
+                       / 0.02) * (cap.V > 0)
+        sv = StreamVorticity(cap, 0.05, 1e-2, pt.make_diffusion_ops(cap),
+                             bc_stream_border=stokes_walls(pt),
+                             bc_vorticity_border=stokes_walls(pt),
+                             omega0=(w0, torch.zeros_like(w0)))
+        sv.run(2, scheme="CN")
+        return sv.omega + sv.psi + sv.velocity, None
+
+    cases.append(("StreamVorticity, 2 CN steps", streamvort, "eq"))
+
+    def coupler(strategy):
+        fl = fluids["cavity"]
+        mom = ns_cavity(pt, 0, f64, device, 100.0, fluid=fl)
+        cap = fl.capacity_p
+        T0 = torch.clamp(1.0 - cap.C_om[..., 0], 0.0, 1.0) * (cap.V > 0)
+        return NavierStokesScalarCoupler(
+            mom, cap, fl.operator_p, kappa=1e-2,
+            scalar_source=lambda x, y, z, t: 0.0,
+            bc_scalar=pt.BorderConditions({
+                "bottom": pt.Dirichlet(1.0), "top": pt.Dirichlet(0.0),
+                "left": pt.Neumann(0.0), "right": pt.Neumann(0.0)}),
+            bc_scalar_cut=pt.Dirichlet(0.0), strategy=strategy, beta=10.0,
+            T_ref=0.5, T0=(T0, T0))
+
+    def steps(strategy, n_steps):
+        def run():
+            c = coupler(strategy)
+            for _ in range(n_steps):
+                c.step(0.01)
+            return c.x + c.T, None
+        return run
+
+    cases.append(("coupler passive, 2 lstsq steps",
+                  steps(PassiveCoupling(), 2), "eq"))
+    cases.append(("coupler Picard, 1 step of 2 sweeps",
+                  steps(PicardCoupling(tol_T=0.0, tol_U=0.0, maxiter=2), 1),
+                  "eq"))
+    cases.append(("coupler monolithic Newton (jacfwd), 1 step",
+                  steps(MonolithicCoupling(tol=1e-11, maxiter=3), 1), "eq"))
+
+    def fast():
+        c = coupler(PicardCoupling())
+        x0, T0 = c.x, c.T
+        c.run_fast(0.01, 0.01, picard_iters=1, tol=1e-12, method="pgmres")
+        mom = c.momentum
+        conv = mom.conv_vectors(x0)
+        b = mom.make_unsteady_rhs(0.01, 1.0)(
+            x0, 0.0, 0.01, extra_mom=tuple(c._mom_extra(conv[d], T0[0], d)
+                                           for d in range(2)))
+        res_u = relres(mom.make_unsteady_apply(0.01, 1.0), b)
+        af, bf, _ = c._scalar_system(0.01, "BE", c.x)
+        res_T = relres(af, bf(T0, 0.0))
+        n_x = len(c.x)
+
+        def res(out):
+            # the momentum and the scalar solves, each in its own system
+            # (pgmres' tolerance is on the Jacobi/M-scaled residual)
+            return max(res_u(out[:n_x]), res_T(out[n_x:]))
+
+        return (c.x + c.T, [c.krylov_iters_u.tolist(),
+                            c.krylov_iters_T.tolist()], res)
+
+    cases.append(("coupler run_fast pgmres, one step", fast, "resid"))
+    return cases
+
+
+def phase_ns_card_vs_cpu(pt, ks, device, n=NS_CVC_N):
+    log(f"== phase 19: the Navier-Stokes path, card against the CPU path "
+        f"(f64, {n}² and {CVC_CHANNEL[0]} × {CVC_CHANNEL[1]})")
+    f64 = torch.float64
+    cpu = torch.device("cpu")
+    reset_launches(ks)
+    # the capacities are built on the card and copied (as in phase 16)
+    channel = dfg_solver(pt, CVC_CHANNEL, f64, device, umax=0.3).fluid
+    card = {
+        "channel": channel,
+        "cavity": stokes_fluid(pt, None, n, 1.0, f64, device, mu=0.01),
+    }
+    host = {k: fluid_to(pt, v, cpu) for k, v in card.items()}
+    compare_cases(ns_cases(pt, device, card), ns_cases(pt, cpu, host))
+    read_launches(ks, "the Navier-Stokes card-vs-CPU runs (phase 19)")
 
 
 def dct2_fft(x):
@@ -2360,6 +2978,103 @@ def stokes_times(pt, rows, smi, device):
         f"{', '.join(f'{v:.1f}' for v in mm)} µs, FFT (Makhoul) "
         f"{', '.join(f'{v:.1f}' for v in ff)} µs; they agree to {err:.1e} "
         f"of scale; recorded only, the port keeps the matmul [{smi}]")
+
+
+def ns_times(pt, rows, smi, device):
+    """The Navier-Stokes path on the card: the DFG 2D-1 JFNK per Newton
+    step and per fgmres iteration, split into the jvp of the residual
+    (with the Picard apply alone beside it) and M, with kernels, host
+    syncs, busy share and peak memory per iteration; the DFG 2D-2 implicit
+    Picard step, whole and per fgmres iteration, likewise; ms per step of
+    the heated cavity's run_fast."""
+    from penguin_tpu_torch.linsolve import fgmres
+    fmt = lambda v: ", ".join(f"{m:.2f}" for m in v)  # noqa: E731
+
+    def per_iteration(solve, its):
+        """(ms per iteration over 3 repeats, kernels and busy ms per
+        iteration over 2, host syncs per iteration, peak MiB)."""
+        ms = [cuda_ms(solve(its), 1) / its for _ in range(3)]
+        n_kernels, busy = _profile_kernels(solve(2))
+        syncs = count_syncs(solve(its))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        solve(its)()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        return ms, n_kernels / 2, busy / 2, syncs / its, peak
+
+    r1 = rows["dfg1"]
+    s = r1["solver"]
+    x = s.x
+    b = s.rhs_steady()
+
+    def R(v):
+        return s.nonlinear_residual(v, b)
+
+    r = R(x)
+    zeros = tuple(torch.zeros_like(a) for a in x)
+    M = s.make_block_preconditioner(dt=None, theta=1.0, schur="dct_cg")
+
+    def Jv(v):
+        return torch.func.jvp(R, (x,), (v,))[1]
+
+    ms_jvp = [cuda_ms(lambda: Jv(r), 5) for _ in range(3)]
+    ms_apply = [cuda_ms(lambda: s.make_picard_apply(x)(r), 5)
+                for _ in range(3)]
+    ms_M = [cuda_ms(lambda: M(r), 5) for _ in range(3)]
+
+    def jfnk(its):
+        return lambda: fgmres(Jv, r, zeros, Minv=M, tol=1e-30, maxiter=its,
+                              restart=its)
+
+    ms, kern, busy, syncs, peak = per_iteration(jfnk, 8)
+    nx, ny = s.fluid.mesh_p.n
+    log(f"DFG 2D-1 {nx}×{ny} f32, JFNK: phase 17's {r1['steps']} Newton "
+        f"steps in {r1['wall']:.2f} s ({r1['wall'] / max(r1['steps'], 1):.2f}"
+        f" s per Newton step, {r1['wall'] / max(r1['its'], 1) * 1e3:.1f} ms "
+        f"per fgmres iteration with the line search and set-up); 8 fgmres "
+        f"iterations alone, ms per iteration, 3 repeats: {fmt(ms)}; one jvp "
+        f"of the residual {fmt(ms_jvp)} ms (the Picard apply alone "
+        f"{fmt(ms_apply)}), one M (DCT-CG Schur, 25 inner) {fmt(ms_M)} ms; "
+        f"per iteration {kern:.0f} kernels, {syncs:.2f} host syncs, device "
+        f"busy {busy / min(ms):.1%}; peak memory above the state {peak:.0f} "
+        f"MiB [{smi}]")
+    r2 = rows["dfg2"]
+    s2 = r2["solver"]
+    x2 = s2.x
+    dt = DFG2_DT
+    t_now = r2["steps"] * dt
+    theta = 0.5
+
+    M2 = s2.make_block_preconditioner(dt=dt, theta=theta, schur="dct_cg",
+                                      schur_cg_iters=8)
+    conv = s2.conv_vectors(x2)
+    b2 = s2.make_unsteady_rhs(dt, theta)(
+        x2, t_now, t_now + dt, extra_mom=tuple(-0.5 * c for c in conv))
+    apply2 = s2._picard_rows(x2, dt, theta)
+
+    def picard(its):
+        return lambda: fgmres(apply2, b2, x2, Minv=M2, tol=1e-30,
+                              maxiter=its, restart=its)
+
+    ms2, kern2, busy2, syncs2, peak2 = per_iteration(picard, 8)
+    ms_M2 = [cuda_ms(lambda: M2(b2), 5) for _ in range(3)]
+    ms_a2 = [cuda_ms(lambda: apply2(x2), 5) for _ in range(3)]
+    log(f"DFG 2D-2 {nx}×{ny} f32, CN implicit Picard: phase 17's "
+        f"{r2['steps']} steps {r2['wall'] / r2['steps'] * 1e3:.1f} ms per "
+        f"step with the record (mean {r2['its'].mean():.1f} fgmres "
+        f"iterations in the last sweep); 8 fgmres iterations alone, ms per "
+        f"iteration: {fmt(ms2)}, of which "
+        f"one apply {fmt(ms_a2)} and one M (DCT-CG Schur, 8 inner) "
+        f"{fmt(ms_M2)}; per iteration {kern2:.0f} kernels, {syncs2:.2f} host"
+        f" syncs, busy {busy2 / min(ms2):.1%}; peak memory {peak2:.0f} MiB "
+        f"[{smi}]")
+    h = rows["heated"]
+    log(f"heated cavity {h['coupler'].cap_T.mesh.n[0]}² f64, run_fast: "
+        f"{h['wall'] / h['steps'] * 1e3:.1f} ms per step over phase 18's "
+        f"{h['steps']} steps (two Picard sweeps of momentum and scalar "
+        f"pgmres) [{smi}]")
 
 
 def stefan_times(pt, rows, smi, device):
@@ -2655,10 +3370,17 @@ def phase_times(pt, ks, rows, device, smi):
         log(f"{label}: ms/step over {n} steps, 3 repeats: "
             f"{', '.join(f'{m:.4f}' for m in ms)}; CG iters/step over the "
             f"span last={int(last)} max={int(mx)}{mean} [{smi}]")
-    general_times(pt, rows, smi)
-    moving_times(pt, rows, smi, device)
-    stefan_times(pt, rows, smi, device)
-    stokes_times(pt, rows, smi, device)
+    took = {}
+    for name, fn, args in (("general", general_times, (pt, rows, smi)),
+                           ("moving", moving_times, (pt, rows, smi, device)),
+                           ("stefan", stefan_times, (pt, rows, smi, device)),
+                           ("stokes", stokes_times, (pt, rows, smi, device)),
+                           ("navier-stokes", ns_times,
+                            (pt, rows, smi, device))):
+        t0 = time.perf_counter()
+        fn(*args)
+        took[name] = round(time.perf_counter() - t0, 1)
+    log(f"phase 7 seconds per path: {took}")
     return kernel_times(ks, device, smi)
 
 
@@ -2759,8 +3481,9 @@ def main():
     timed_phase("4", phase_card_vs_cpu, pt, FastHeatBE, device, rows)
     timed_phase("5", phase_general, pt, device, rows)
     timed_phase("6", phase_general_card_vs_cpu, pt, device)
-    # the moving, phase-change and Stokes paths launch neither kernel (nor
-    # do the JAX package's): their counts are those of phase 3
+    # the moving, phase-change, Stokes and Navier-Stokes paths launch
+    # neither kernel (nor do the JAX package's): their counts are those of
+    # phase 3
     timed_phase("8", phase_moving, pt, device, rows)
     timed_phase("9", phase_front, pt, device, rows)
     timed_phase("10", phase_moving_card_vs_cpu, pt, device)
@@ -2770,6 +3493,9 @@ def main():
     timed_phase("14", phase_stokes, pt, ks, device, rows)
     timed_phase("15", phase_moving_stokes, pt, ks, device, rows)
     timed_phase("16", phase_stokes_card_vs_cpu, pt, device)
+    timed_phase("17", phase_navier_stokes, pt, ks, device, rows)
+    timed_phase("18", phase_ns_scalar, pt, ks, device, rows)
+    timed_phase("19", phase_ns_card_vs_cpu, pt, ks, device)
     timed = timed_phase("7", phase_times, pt, ks, rows, device, smi)
     replaces = {"stencil5_matvec": "penguin_tpu/pallas_kernels/stencil.py:250",
                 "stencil7_matvec": "penguin_tpu/pallas_kernels/stencil.py:220"}

@@ -1,7 +1,8 @@
 """Solvers of the PyTorch port: the scalar diffusion, advection-diffusion
 and Darcy solvers, the prescribed-motion (moving interface) diffusion
 solvers, the Stefan (phase-change) and species/binary-alloy solvers, the
-static, two-phase and moving-boundary Stokes solvers, and the benchmark's
+static, two-phase and moving-boundary Stokes solvers, the Navier-Stokes,
+stream-vorticity and Navier-Stokes-scalar solvers, and the benchmark's
 heat stepper."""
 
 from .diffusion import (
@@ -39,6 +40,13 @@ from .binary import DiffusionUnsteadyBinary
 from .stokes import StokesMono, PinPressureGauge, MeanPressureGauge
 from .stokes_diph import StokesDiph
 from .moving_stokes import MovingStokesMono
+from .navierstokes import NavierStokesMono
+from .streamvort import StreamVorticity
+from .ns_scalar import (
+    NavierStokesScalarCoupler,
+    PassiveCoupling,
+    PicardCoupling,
+)
 from .heat_fast import FastHeatBE
 
 __all__ = [
@@ -70,5 +78,10 @@ __all__ = [
     "MeanPressureGauge",
     "StokesDiph",
     "MovingStokesMono",
+    "NavierStokesMono",
+    "StreamVorticity",
+    "NavierStokesScalarCoupler",
+    "PassiveCoupling",
+    "PicardCoupling",
     "FastHeatBE",
 ]

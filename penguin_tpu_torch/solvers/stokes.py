@@ -56,6 +56,8 @@ from ..boundary import (
 from ..capacity import gamma_half_moments
 from ..linsolve import (
     DenseFactorSolver,
+    _leaves,
+    _unflatten,
     gmres,
     host_read,
     pbicgstab,
@@ -254,6 +256,22 @@ def stokes_divergence(fluid, uws, ugs):
         per = opp._per(d)
         out = (out - dm_t(Ap * uws[d], d, per) + dm_t(Ap * ugs[d], d, per)
                - Bp * dm_t(ugs[d], d, per))
+    return out
+
+
+def _read_steps(steps):
+    """Per-step lists of tensors (0-d or 1-d, each position the same
+    shape every step) stacked over the steps: numpy arrays, in one host
+    read."""
+    cols = [torch.stack(c) for c in zip(*steps)]
+    flat = host_read(torch.cat([c.reshape(-1).to(torch.float64)
+                                for c in cols]))
+    out, pos = [], 0
+    for c in cols:
+        dt = torch.empty((), dtype=c.dtype).numpy().dtype
+        out.append(flat[pos:pos + c.numel()].reshape(tuple(c.shape))
+                   .astype(dt))
+        pos += c.numel()
     return out
 
 
@@ -1374,10 +1392,28 @@ class StokesMono:
                 x = step(x, t)
         self.x = x
         if telemetry:
-            self.krylov_iters = np.asarray(iters)
-            self.krylov_relres = (host_read(torch.stack(res)) if res
-                                  else np.zeros(0))
+            self._store_logs(iters, res)
         return self.x
+
+    def _store_logs(self, iters, rels, record=None, recs=()):
+        """``krylov_iters``/``krylov_relres`` (unless ``iters`` is None)
+        and ``record_log`` (when a ``record`` was given) from the per-step
+        values, with one host read after the loop."""
+        telemetry = iters is not None
+        # pbicgstab's relres is a device tensor, the GMRES ones host floats
+        dev_rel = telemetry and bool(rels) and isinstance(rels[0],
+                                                          torch.Tensor)
+        n = max(len(rels), len(recs))
+        steps = [([rels[k]] if dev_rel else [])
+                 + (_leaves(recs[k]) if recs else []) for k in range(n)]
+        cols = _read_steps(steps) if n and steps[0] else []
+        if telemetry:
+            self.krylov_iters = np.asarray(iters, dtype=np.int64)
+            self.krylov_relres = (cols[0] if dev_rel else
+                                  np.asarray(rels, dtype=np.float64))
+        if record is not None:
+            self.record_log = (_unflatten(recs[0], iter(cols[int(dev_rel):]))
+                               if recs else None)
 
     # views
     def velocity(self, d, gamma=False):

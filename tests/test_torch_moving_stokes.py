@@ -166,3 +166,79 @@ def test_moving_stokes_static_body_matches_unsteady():
         a = mov.velocity(d)[:n, :n]
         b = ref.velocity(d)[:n, :n]
         assert (a - b).abs().max() < 1e-6, d
+
+
+def _galilean(pkg, n, M, carry=None):
+    """benchmarks/moving_couette_galilean.py's annulus translating at U0 =
+    0.5 (moment cut flux): the solver, its slab body, the exact start and
+    dt (0.1 cells of wall travel per slab)."""
+    m = C.xp(pkg)
+    ri, ro, om, u0 = C.RI, C.RO, C.OM, 0.5
+    a = -om * ri ** 2 / (ro ** 2 - ri ** 2)
+    b = om * ri ** 2 * ro ** 2 / (ro ** 2 - ri ** 2)
+
+    def split(x, y, t):
+        dx = x - C.CENTER[0] - u0 * t
+        dy = y - C.CENTER[1]
+        r2 = dx * dx + dy * dy
+        return dx, dy, (torch.clamp_min(r2, 1e-12) if C.is_torch(pkg)
+                        else m.maximum(r2, 1e-12))
+
+    def u_exact(comp, x, y, t):
+        dx, dy, r2 = split(x, y, t)
+        w = a + b / r2
+        return -w * dy + u0 if comp == 0 else w * dx
+
+    def f_body(comp, x, y, t):
+        dx, dy, r2 = split(x, y, t)
+        ddx = (2.0 * b * dx * dy / (r2 * r2) if comp == 0
+               else a + b / r2 - 2.0 * b * dx * dx / (r2 * r2))
+        return -u0 * ddx
+
+    def body_st(x, y, tau, params):
+        t = params[0] + tau
+        r = m.sqrt((x - C.CENTER[0] - u0 * t) ** 2 + (y - C.CENTER[1]) ** 2)
+        return m.maximum(ri - r, r - ro)
+
+    fl = C.fluid(pkg, C.annulus(pkg), n, L=4.0, cut_moments=False,
+                 f_u=(lambda x, y, z, t=0.0: f_body(0, x, y, t),
+                      lambda x, y, z, t=0.0: f_body(1, x, y, t)))
+    if carry is not None:
+        fl = C.carry_fluid(carry, fl)
+    bc = tuple(pkg.BorderConditions({k: pkg.Dirichlet(
+        lambda x, y, z, t=0.0, c=c: u_exact(c, x, y, t))
+        for k in ("left", "right", "bottom", "top")}) for c in (0, 1))
+    cut = tuple(pkg.Dirichlet(lambda x, y, z, t=0.0, c=c: u_exact(c, x, y, t))
+                for c in (0, 1))
+    s = M(fl, bc, None, cut, cut_flux="moment")
+    x0 = list(s.zero_state())
+    for k in (0, 1):
+        Ck = fl.capacity_u[k].C_om
+        x0[2 * k] = x0[2 * k + 1] = u_exact(k, Ck[..., 0], Ck[..., 1], 0.0)
+    return s, body_st, tuple(x0), 0.1 * (4.0 / n) / u0
+
+
+@pytest.mark.slow
+def test_galilean_fgmres_stall_matches_jax():
+    """The first Galilean slab at 32² in f64 by fgmres with the static
+    block-Schur/DCT M (tol 1e-10, 2000 iterations): both packages stall at
+    the cap, with relres within a factor of 2 of each other (a reference
+    behaviour, not a port fault)."""
+    from penguin_tpu.linsolve import fgmres as j_fgmres
+    from penguin_tpu.solvers.stokes import StokesMono as JStokes
+    n, tol, maxiter = 32, 1e-10, 2000
+    sj, bj, x0j, dt = _galilean(jpt, n, JMoving)
+    st, bt, _, _ = _galilean(tpt, n, TMoving, carry=sj.fluid)
+    x0t = tuple(torch.as_tensor(np.array(a)) for a in x0j)
+    ref = JStokes(sj.fluid, sj.bc_u, None, sj.bc_cut, cut_flux="centroid")
+    M = ref.make_block_preconditioner(dt=dt, theta=1.0, schur="dct_cg",
+                                      schur_cg_iters=8)
+    apply_fn, rhs_fn = sj._slab_system(bj, 0.0, dt, 1.0, "BE", 4, 1, x0j, dt)
+    _, its_j, rel_j = j_fgmres(apply_fn, rhs_fn(), x0j, Minv=M, tol=tol,
+                               maxiter=maxiter, restart=60)
+    st.solve(bt, dt, 0.0, dt, x0=x0t, method="fgmres", tol=tol,
+             maxiter=maxiter)
+    its_t, rel_t = int(st.krylov_iters[0]), float(st.krylov_relres[0])
+    assert int(its_j) >= maxiter and its_t >= maxiter, (its_j, its_t)
+    assert float(rel_j) > tol and rel_t > tol, (rel_j, rel_t)
+    assert 0.5 <= rel_t / float(rel_j) <= 2.0, (rel_t, float(rel_j))

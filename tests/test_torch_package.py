@@ -2,7 +2,8 @@
 paths that once raised as not ported give results, it exports the JAX
 package's public names for what it has ported, its entry points default to
 the CUDA device,
-its solvers (the Stokes classes among them) follow their inputs' device,
+its solvers (the Stokes and Navier-Stokes classes among them) follow their
+inputs' device,
 its condition values take the requested dtype, and its kernel build is
 keyed by the sources."""
 
@@ -31,7 +32,10 @@ def test_import_leaves_no_jax():
             "penguin_tpu_torch.solvers.moving_diffusion, "
             "penguin_tpu_torch.solvers.stokes, "
             "penguin_tpu_torch.solvers.stokes_diph, "
-            "penguin_tpu_torch.solvers.moving_stokes; "
+            "penguin_tpu_torch.solvers.moving_stokes, "
+            "penguin_tpu_torch.solvers.navierstokes, "
+            "penguin_tpu_torch.solvers.ns_scalar, "
+            "penguin_tpu_torch.solvers.streamvort; "
             "print(any(m == 'jax' or m.startswith('jax.') "
             "for m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -73,7 +77,8 @@ def test_public_names_follow_the_jax_package():
                 "solvers.stefan1d", "solvers.stefan2d",
                 "solvers.stefan2d_height", "solvers.concentration",
                 "solvers.binary", "solvers.stokes", "solvers.stokes_diph",
-                "solvers.moving_stokes"):
+                "solvers.moving_stokes", "solvers.navierstokes",
+                "solvers.ns_scalar", "solvers.streamvort"):
         j = importlib.import_module("penguin_tpu." + mod)
         t = importlib.import_module("penguin_tpu_torch." + mod)
         missing = [n for n in j.__all__ if not hasattr(t, n)]
@@ -91,7 +96,9 @@ def test_public_names_follow_the_jax_package():
                  "MovingLiquidDiffusionUnsteadyMono2D",
                  "DiffusionUnsteadyConcentration", "DiffusionUnsteadyBinary",
                  "StokesMono", "PinPressureGauge", "MeanPressureGauge",
-                 "StokesDiph", "MovingStokesMono"):
+                 "StokesDiph", "MovingStokesMono", "NavierStokesMono",
+                 "StreamVorticity", "NavierStokesScalarCoupler",
+                 "PassiveCoupling", "PicardCoupling"):
         assert name in jsolvers.__all__
         assert name in solvers.__all__ and hasattr(solvers, name)
 
@@ -286,32 +293,38 @@ def test_phase_change_solvers_follow_their_inputs(name, monkeypatch):
         assert torch.isfinite(t).all(), name
 
 
-def _stokes_runs():
-    """One short solve of each Stokes class on CPU capacities: name ->
-    callable returning the tensors it produced."""
-    from penguin_tpu_torch.solvers import (MovingStokesMono, StokesDiph,
-                                           StokesMono)
-    n = 6
-    mesh_p = tpt.Mesh((n, n), (1.0, 1.0))
-    meshes_u = (tpt.Mesh((n, n), (1.0, 1.0), (-0.5 / n, 0.0)),
-                tpt.Mesh((n, n), (1.0, 1.0), (0.0, -0.5 / n)))
+def _lid_walls():
     lid = tpt.BorderConditions({"top": tpt.Dirichlet(1.0),
                                 "bottom": tpt.Dirichlet(0.0),
                                 "left": tpt.Dirichlet(0.0),
                                 "right": tpt.Dirichlet(0.0)})
     walls = tpt.BorderConditions({k: tpt.Dirichlet(0.0) for k in
                                   ("top", "bottom", "left", "right")})
+    return lid, walls
 
-    def fluid(body):
-        caps = [tpt.compute_capacity(body, m, p=2, s=1, device="cpu")
-                for m in meshes_u + (mesh_p,)]
-        ops = [tpt.make_diffusion_ops(c) for c in caps]
-        return tpt.Fluid(mesh_u=meshes_u, mesh_p=mesh_p,
-                         capacity_u=tuple(caps[:2]), operator_u=tuple(ops[:2]),
-                         capacity_p=caps[2], operator_p=ops[2], mu=1.0,
-                         rho=1.0, f_u=lambda x, y, z: 0.0,
-                         f_p=lambda x, y, z: 0.0)
 
+def _small_fluid(body, n=6):
+    """A staggered fluid of ``body`` on CPU capacities, n² cells."""
+    mesh_p = tpt.Mesh((n, n), (1.0, 1.0))
+    meshes_u = (tpt.Mesh((n, n), (1.0, 1.0), (-0.5 / n, 0.0)),
+                tpt.Mesh((n, n), (1.0, 1.0), (0.0, -0.5 / n)))
+    caps = [tpt.compute_capacity(body, m, p=2, s=1, device="cpu")
+            for m in meshes_u + (mesh_p,)]
+    ops = [tpt.make_diffusion_ops(c) for c in caps]
+    return tpt.Fluid(mesh_u=meshes_u, mesh_p=mesh_p,
+                     capacity_u=tuple(caps[:2]), operator_u=tuple(ops[:2]),
+                     capacity_p=caps[2], operator_p=ops[2], mu=1.0,
+                     rho=1.0, f_u=lambda x, y, z: 0.0,
+                     f_p=lambda x, y, z: 0.0)
+
+
+def _stokes_runs():
+    """One short solve of each Stokes class on CPU capacities: name ->
+    callable returning the tensors it produced."""
+    from penguin_tpu_torch.solvers import (MovingStokesMono, StokesDiph,
+                                           StokesMono)
+    lid, walls = _lid_walls()
+    fluid = _small_fluid
     circle = tpt.geometry.circle((0.5, 0.5), 0.3)
     full = tpt.geometry.full_domain(2)
 
@@ -359,6 +372,113 @@ def test_stokes_solvers_follow_their_capacities(name, monkeypatch):
 
     monkeypatch.setattr(_device, "default_device", no_default)
     for t in _stokes_runs()[name]():
+        assert t.device.type == "cpu" and t.dtype == torch.float64, name
+        assert torch.isfinite(t).all(), name
+
+
+def _ns_runs():
+    """One short run of each Navier-Stokes class and path on CPU
+    capacities: name -> callable returning the tensors it produced."""
+    from penguin_tpu_torch.solvers import (NavierStokesMono,
+                                           NavierStokesScalarCoupler,
+                                           PicardCoupling, StreamVorticity)
+    from penguin_tpu_torch.solvers.ns_scalar import MonolithicCoupling
+    lid, walls = _lid_walls()
+    circle = tpt.geometry.circle((0.5, 0.5), 0.3)
+
+    def ns():
+        return NavierStokesMono(_small_fluid(tpt.geometry.complement(
+            circle)), (lid, walls))
+
+    def unsteady(method):
+        s = ns()
+        rec = s.make_control_volume_recorder((0.1, 0.9, 0.1, 0.9))
+        probe = s.make_pressure_probe([(0.5, 0.1)])
+        s.solve_unsteady(0.1, 0.2, method=method, maxiter=5,
+                         record=lambda x: rec(x) + (probe(x),))
+        return s.x + s.conv_prev_out + tuple(torch.as_tensor(v) for v in
+                                             s.record_log)
+
+    def picard(method):
+        s = ns()
+        s.solve_unsteady_picard(0.1, 0.1, picard_iters=2, method=method,
+                                maxiter=5)
+        return s.x
+
+    def steady(which):
+        s = ns()
+        if which == "newton":
+            s.solve_steady_newton(max_iter=2, picard_warmup=1)
+        elif which == "jfnk":
+            s.solve_steady_newton_krylov(max_iter=2, lin_maxiter=5,
+                                         picard_warmup=1)
+        elif which == "marching":
+            s.solve_steady_marching(0.1, t_max=0.2, chunk=0.1,
+                                    method="fgmres", maxiter=5)
+        else:
+            s.solve_steady(max_iter=2, method="pbicgstab")
+        return s.x
+
+    def streamvort():
+        cap = tpt.compute_capacity(circle, tpt.Mesh((6, 6), (1.0, 1.0)),
+                                   p=2, s=1, device="cpu")
+        w0 = torch.ones_like(cap.V)
+        sv = StreamVorticity(cap, 0.1, 0.1, tpt.make_diffusion_ops(cap),
+                             omega0=(w0, w0))
+        sv.run(1)
+        return sv.omega + sv.psi + sv.velocity
+
+    def coupler(strategy, fast=False):
+        fl = _small_fluid(tpt.geometry.full_domain(2))
+        c = NavierStokesScalarCoupler(
+            NavierStokesMono(fl, (walls, walls)), fl.capacity_p,
+            fl.operator_p, 0.1, lambda x, y, z, t: 0.0,
+            tpt.BorderConditions({"left": tpt.Dirichlet(1.0)}),
+            tpt.Dirichlet(0.0), strategy=strategy, beta=1.0)
+        if fast:
+            c.run_fast(0.1, 0.1, maxiter=5, method="pgmres")
+        else:
+            c.step(0.1)
+        return c.x + c.T
+
+    return {
+        "NavierStokesMono.solve_unsteady-direct":
+            lambda: unsteady("direct"),
+        "NavierStokesMono.solve_unsteady-fgmres":
+            lambda: unsteady("fgmres"),
+        "NavierStokesMono.solve_unsteady-gmres": lambda: unsteady("gmres"),
+        "NavierStokesMono.solve_unsteady_picard-lstsq":
+            lambda: picard("lstsq"),
+        "NavierStokesMono.solve_unsteady_picard-fgmres":
+            lambda: picard("fgmres"),
+        "NavierStokesMono.solve_steady-pbicgstab": lambda: steady("picard"),
+        "NavierStokesMono.solve_steady_newton": lambda: steady("newton"),
+        "NavierStokesMono.solve_steady_newton_krylov":
+            lambda: steady("jfnk"),
+        "NavierStokesMono.solve_steady_marching": lambda: steady("marching"),
+        "StreamVorticity": streamvort,
+        "NavierStokesScalarCoupler.step-picard":
+            lambda: coupler(PicardCoupling(maxiter=2)),
+        "NavierStokesScalarCoupler.step-monolithic":
+            lambda: coupler(MonolithicCoupling(maxiter=2)),
+        "NavierStokesScalarCoupler.run_fast":
+            lambda: coupler(PicardCoupling(), fast=True),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_ns_runs()))
+def test_navier_stokes_solvers_follow_their_capacities(name, monkeypatch):
+    """Each Navier-Stokes class and path on CPU capacities computes on the
+    CPU and returns finite CPU tensors; with the default device made to
+    fail, no path of the set-up, the diagnostics or the solve asks for
+    it."""
+    from penguin_tpu_torch import _device
+
+    def no_default():
+        raise AssertionError("a solve asked for the default device")
+
+    monkeypatch.setattr(_device, "default_device", no_default)
+    for t in _ns_runs()[name]():
         assert t.device.type == "cpu" and t.dtype == torch.float64, name
         assert torch.isfinite(t).all(), name
 

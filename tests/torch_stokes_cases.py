@@ -64,24 +64,26 @@ def fluid(pkg, body, n, L=1.0, ndim=2, mu=1.0, rho=1.0, f_u=None,
         f_p=lambda x, y, z: 0.0)
 
 
+def carry_capacity(jcap, mesh):
+    """A JAX capacity carried into the port (CPU, f64) on the port's
+    ``mesh``, as numpy arrays."""
+    from penguin_tpu_torch.convert import CAPACITY_FIELDS, capacity_from_numpy
+    fields = {}
+    for k in CAPACITY_FIELDS:
+        v = getattr(jcap, k)
+        fields[k] = (None if v is None else tuple(np.asarray(a) for a in v)
+                     if isinstance(v, tuple) else np.asarray(v))
+    return capacity_from_numpy(fields, mesh, device="cpu")
+
+
 def carry_fluid(jfl, tfl):
     """The port fluid ``tfl`` on the JAX fluid's capacities, carried across
     as numpy arrays (the two packages' capacity builds agree to 1e-11 of
     scale only, which sliver weights Wꜝ ~ 1e6 would carry into every
     operator comparison)."""
-    from penguin_tpu_torch.convert import CAPACITY_FIELDS, capacity_from_numpy
-
-    def conv(jc, mesh):
-        fields = {}
-        for k in CAPACITY_FIELDS:
-            v = getattr(jc, k)
-            fields[k] = (None if v is None else
-                         tuple(np.asarray(a) for a in v)
-                         if isinstance(v, tuple) else np.asarray(v))
-        return capacity_from_numpy(fields, mesh, device="cpu")
-
-    caps_u = tuple(conv(c, m) for c, m in zip(jfl.capacity_u, tfl.mesh_u))
-    cap_p = conv(jfl.capacity_p, tfl.mesh_p)
+    caps_u = tuple(carry_capacity(c, m)
+                   for c, m in zip(jfl.capacity_u, tfl.mesh_u))
+    cap_p = carry_capacity(jfl.capacity_p, tfl.mesh_p)
     ops_u = tuple(tpt.make_diffusion_ops(c, periodic=op.periodic)
                   for c, op in zip(caps_u, tfl.operator_u))
     return dataclasses.replace(
