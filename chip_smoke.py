@@ -43,10 +43,17 @@ Ghia Re=100 and chunked-AB2 gates in f64 (phase 17); 2 steps of the
 differentially heated cavity of benchmarks/differential_cavity.py at 64²
 through ``NavierStokesScalarCoupler.run_fast`` (Nu reported), the buoyant
 cavity and the stream-vorticity gates (phase 18); every class and path
-card against CPU in f64 (phase 19).  Last it times the steps, the slabs,
-the GN and Newton iterations, the Stokes and Navier-Stokes solves, their
-preconditioner and Krylov iterations, and the kernels (warm and with the
-L2 flushed) with CUDA events (phase 7).  Every phase raises on failure, so
+card against CPU in f64 (phase 19).  Then the periphery (phase 20): the
+general path resumed from ``checkpoint_solver``/``restore_solver`` and
+FastHeatBE from ``save_checkpoint``/``load_checkpoint``, both bit-equal to
+the runs without a break; a ``diagnostics.trace`` of FastHeatBE steps whose
+Chrome trace holds every stencil5 launch; ``diagnostics.timed`` against
+CUDA events; ``KrylovHistory`` around ``pcg``; VTK files of a solver on the
+card and its plot (where matplotlib is installed).  Last it times the steps, the slabs, the GN and Newton
+iterations, the Stokes and Navier-Stokes solves, their preconditioner and
+Krylov iterations, and the kernels (warm, and each launch alone after the
+L2 is evicted by a 128 MB read and by a 128 MB write) with CUDA events
+(phase 7).  Every phase raises on failure, so
 the exit code is 0 only if all passed.  Without a CUDA device it exits with
 an error before doing anything.
 
@@ -54,11 +61,13 @@ The last two lines of standard output are a JSON object with one entry per
 kernel and then ``{"ok": true, "device": {...}}``.
 """
 
+import importlib.util
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -229,6 +238,15 @@ HEAT_STEPS = 2           # 400 steps to t = 20 take 8-11 s each on an H100
                          # (the momentum pgmres runs to its cap, as in JAX):
                          # 2, cut for time
 NS_CVC_N = 12            # card against CPU, f64
+# the periphery (phase 20)
+PERI_STEPS = 4           # the general path: 1+4 solves, a checkpoint, 4 more
+                         # against 1+8 straight (tests/test_checkpoint.py's
+                         # split) at the bench size in f32 by cg
+PERI_HEAT_STEPS = 10     # FastHeatBE: 10 easy steps, a checkpoint, 10 more
+PERI_TRACE_STEPS = 3     # FastHeatBE steps under the profiler
+PERI_LAUNCHES = 256      # stencil7 launches timed by diagnostics.timed, well
+                         # inside the device's queue of pending launches
+PERI_TIMED_SHARE = 0.9
 CVC_CHANNEL = (32, 16)
 
 
@@ -2829,6 +2847,195 @@ def phase_ns_card_vs_cpu(pt, ks, device, n=NS_CVC_N):
     read_launches(ks, "the Navier-Stokes card-vs-CPU runs (phase 19)")
 
 
+# ---------------------------------------------------------------------------
+# the periphery (phase 20)
+# ---------------------------------------------------------------------------
+
+def heat_steps(fast, state, n_steps):
+    """``FastHeatBE.run``'s loop from a resumable state (T, T1, T2): the
+    field and the two before it, which the warm start extrapolates."""
+    T, T1, T2 = state
+    for _ in range(n_steps):
+        Tn, _ = fast.step(T, 3.0 * T - 3.0 * T1 + T2)
+        T, T1, T2 = Tn, T, T1
+    return T, T1, T2
+
+
+def trace_kernels(path, name=""):
+    """The device kernel events of a Chrome trace whose name holds
+    ``name``."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events
+            if e.get("cat") == "kernel" and name in e.get("name", "")]
+
+
+def max_diff(a, b):
+    return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+
+def phase_periphery(pt, ks, device, rows):
+    log("== phase 20: the periphery on the card: checkpoint/resume, a "
+        "profiler trace, synced timers, a Krylov history, VTK and plots")
+    from penguin_tpu_torch import diagnostics as dg, viz, vtk
+    from penguin_tpu_torch.linsolve import pcg
+    from penguin_tpu_torch.solvers import diffusion as td
+    easy = rows["easy"]
+    cap, fast = easy["cap"], easy["fast"]
+    n = cap.mesh.n[0]
+    dt = EASY[0] * (L / n) ** 2
+    with tempfile.TemporaryDirectory() as tmp:
+        # the general path, 2k BE steps straight against k steps, a
+        # checkpoint restored into a fresh solver, and k more
+        k = PERI_STEPS
+        ref = bench_mono(pt, td, cap, dt)
+        ref.solve((2 * k - 0.5) * dt, method="cg", tol=GEN_TOL)
+        check_field("resume reference", ref.x_omega, cap.mesh.np_shape)
+        first = bench_mono(pt, td, cap, dt)
+        first.solve((k - 0.5) * dt, method="cg", tol=GEN_TOL)
+        path = os.path.join(tmp, "general.npz")
+        pt.checkpoint_solver(path, first, t=k * dt)
+        second = bench_mono(pt, td, cap, dt)
+        meta = pt.restore_solver(path, second)
+        if any(t.device != device for t in second.x):
+            raise AssertionError(f"restored onto {second.x[0].device}")
+        second.u0 = second.x
+        second.solve((k - 0.5) * dt, t_start=meta["t"], initial_solve=False,
+                     method="cg", tol=GEN_TOL)
+        diff = max_diff(ref.x, second.x)
+        size = os.path.getsize(path) / 1e6
+        log(f"{n}² f32 DiffusionUnsteadyMono BE, cg: 1+{2 * k} solves "
+            f"straight against 1+{k}, checkpoint_solver ({size:.2f} MB), "
+            f"restore_solver into a fresh solver on {second.x[0].device}, "
+            f"{k} more from t = {meta['t']:.3e}: max|difference| {diff} "
+            f"(gate: bit-equal); Krylov iterations {ref.krylov.history} "
+            f"against {first.krylov.history} + {second.krylov.history}")
+        if diff != 0.0:
+            raise AssertionError(f"resumed run differs by {diff}")
+        # the main path through a checkpoint: FastHeatBE's state (the field
+        # and the two its warm start extrapolates from), the step in meta
+        m = PERI_HEAT_STEPS
+        T0 = torch.zeros(cap.mesh.np_shape, dtype=torch.float32,
+                         device=device)
+        straight = heat_steps(fast, (T0,) * 3, 2 * m)
+        path = os.path.join(tmp, "fastheat.npz")
+        pt.save_checkpoint(path, heat_steps(fast, (T0,) * 3, m),
+                           meta={"step": m, "dt": fast.dt})
+        loaded, meta = pt.load_checkpoint(path)
+        if any(t.device.type != device.type or t.dtype != torch.float32
+               for t in loaded):
+            raise AssertionError(
+                f"loaded {[(t.device, t.dtype) for t in loaded]}")
+        resumed = heat_steps(fast, loaded, 2 * m - meta["step"])
+        diff = max_diff(straight, resumed)
+        check_field("FastHeatBE resumed", resumed[0], cap.mesh.np_shape)
+        log(f"FastHeatBE {n}² f32 easy: {m} steps, save_checkpoint, "
+            f"load_checkpoint with no device (onto {loaded[0].device}, meta "
+            f"{meta}), {m} more against {2 * m} straight: max|difference| "
+            f"{diff} (gate: bit-equal)")
+        if diff != 0.0:
+            raise AssertionError(f"FastHeatBE resumed run differs by {diff}")
+        # a profiler trace of the main path: its device kernels hold every
+        # stencil5 launch the wrapper counted
+        before = ks.stencil5_matvec.launches
+        with dg.trace("fastheat", tmp) as d:
+            fast.run(straight[0], PERI_TRACE_STEPS)
+        grew = ks.stencil5_matvec.launches - before
+        tpath = os.path.join(d, "fastheat.pt.trace.json")
+        stencil = trace_kernels(tpath, "stencil5_kernel")
+        dur = [e.get("dur", 0.0) for e in stencil]
+        log(f"trace of {PERI_TRACE_STEPS} FastHeatBE steps: "
+            f"{os.path.getsize(tpath) / 1e6:.2f} MB Chrome trace, "
+            f"{len(trace_kernels(tpath))} device kernels, {len(stencil)} of "
+            f"them stencil5_kernel (median {np.median(dur) if dur else 0:.2f}"
+            f" µs each); stencil5_matvec.launches grew by {grew} [gate: "
+            f"equal, above 0 on the card]")
+        if len(stencil) != grew or (device.type == "cuda" and grew == 0):
+            raise AssertionError(f"trace holds {len(stencil)} stencil5 "
+                                 f"kernels, the wrapper counted {grew}")
+        # timed() waits for the card: back-to-back stencil7 launches, whose
+        # enqueue is far shorter than their run, against CUDA events
+        if device.type == "cuda":
+            g = torch.Generator(device=device).manual_seed(1)
+            arrays = [torch.randn((N3D + 1,) * 3, generator=g, device=device,
+                                  dtype=torch.float32) for _ in range(8)]
+            launch = bare_launch(ks, "stencil7_matvec", arrays)
+
+            def work():
+                for _ in range(PERI_LAUNCHES):
+                    launch()
+                return launch.keep[1]
+
+            work()
+            torch.cuda.synchronize()
+            dg.reset()
+            with dg.timed("enqueue only"):
+                work()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with dg.timed("synced") as box:
+                start.record()
+                box["sync"] = work()
+                end.record()
+            torch.cuda.synchronize()
+            ev_ms = start.elapsed_time(end)
+            table = dg.report(print_fn=lambda *_: None)
+            synced = table["synced"]["total_s"] * 1e3
+            log(f"diagnostics.timed over {PERI_LAUNCHES} stencil7 launches "
+                f"at {N3D + 1}³: {synced:.3f} ms with sync, "
+                f"{table['enqueue only']['total_s'] * 1e3:.3f} ms without; "
+                f"CUDA events {ev_ms:.3f} ms (gate: synced ≥ "
+                f"{PERI_TIMED_SHARE} × events)")
+            if synced < PERI_TIMED_SHARE * ev_ms:
+                raise AssertionError(f"timed read {synced} ms of {ev_ms}")
+        # KrylovHistory around the port's pcg on the main path's stencil
+        hist = dg.KrylovHistory(fast.matvec)
+        b = fast.matvec(straight[0])
+        x, iters, relres = pcg(hist, b, torch.zeros_like(b), Minv=fast._dinv,
+                               tol=TOL, maxiter=1000)
+        res = hist.record_final(b, x)
+        log(f"KrylovHistory around pcg on the {n}² f32 stencil: {iters} "
+            f"iterations, {hist.n_matvec} matvecs, recurrence relres "
+            f"{relres.item():.2e}, record_final {res:.2e} (gate "
+            f"{10 * TOL:.0e})")
+        if not (hist.n_matvec > 0 and res <= 10 * TOL):
+            raise AssertionError(f"KrylovHistory: {hist.n_matvec}, {res}")
+        # VTK and a plot of a solver on the card: phase 11's Stefan flagship
+        s = rows["stefan"]["solver"]
+        body = pt.geometry.circle(FRANK_CENTER, frank_radius(s.markers)[0])
+        files = [vtk.write_vtk(os.path.join(tmp, "stefan"), s.mesh, s),
+                 vtk.write_vtk_series(os.path.join(tmp, "series"), s.mesh,
+                                      [s.u0, s.x], times=[0.0, 1.0])]
+        files += [os.path.join(tmp, f"series_{j:04d}.vtk") for j in (0, 1)]
+        if importlib.util.find_spec("matplotlib"):
+            files.append(viz.plot_solution(
+                s, s.mesh, body=body, filename=os.path.join(tmp, "s.png")))
+        else:
+            # without matplotlib no plot renders: hold the host copies
+            # that plot_solution makes of the card's state and of the body
+            X, Y = np.meshgrid(s.mesh.nodes[0], s.mesh.nodes[1],
+                               indexing="ij")
+            T = viz._np(s.x[0])
+            phi = viz._body_on_host(body, X, Y)
+            if not (np.array_equal(T, s.x[0].cpu().numpy())
+                    and phi.shape == X.shape and np.isfinite(phi).all()):
+                raise AssertionError("plot_solution's host copies")
+            log("matplotlib is not installed: plot_solution not rendered; "
+                f"its host copies checked ({T.dtype} field {T.shape}, body "
+                f"{phi.dtype} on {phi.shape})")
+        sizes = {os.path.basename(f): os.path.getsize(f) for f in files}
+        npts = math.prod(s.mesh.np_shape)
+        log(f"output of the {s.mesh.n[0]}² Stefan solver on "
+            f"{s.x[0].device}: bytes {sizes}")
+        # each value is written as at least one digit and a newline
+        for f in (files[0], files[2], files[3]):
+            if sizes[os.path.basename(f)] < 2 * 2 * npts:
+                raise AssertionError(f"{f}: {sizes}")
+        if min(sizes.values()) < 100 or sizes.get("s.png", 10_000) < 10_000:
+            raise AssertionError(f"output too small: {sizes}")
+
+
 def dct2_fft(x):
     """Orthonormal DCT-II along the last axis by one FFT of the even-odd
     reordering (Makhoul 1980): timed against the matmul DCT, not used."""
@@ -3384,10 +3591,44 @@ def phase_times(pt, ks, rows, device, smi):
     return kernel_times(ks, device, smi)
 
 
+def bare_launch(ks, name, arrays):
+    """A launch of ``name``'s kernel on ``arrays`` (coefficients and x)
+    with no input checks and a preallocated y: it times the kernel, where
+    the wrapper adds its host-side checks and allocation.  It does not
+    count as a launch of the wrapper."""
+    entry = ks._entry(name, len(arrays) + 1, arrays[0].dim())
+    y = torch.empty_like(arrays[-1])
+    ptrs = [a.data_ptr() for a in arrays] + [y.data_ptr()]
+    shape = tuple(arrays[0].shape)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def bare():
+        err = entry(*ptrs, *shape, 4, stream)
+        if err:
+            raise RuntimeError(f"{name}: cudaError {err}")
+    bare.keep = (arrays, y)   # the buffers outlive the closure's pointers
+    return bare
+
+
+def cold_launches(launch, evict, n=50):
+    """Milliseconds of ``n`` launches, each timed alone with CUDA events
+    after ``evict()``."""
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    launch()
+    for a, e in ev:
+        evict()
+        a.record()
+        launch()
+        e.record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(e) for a, e in ev]
+
+
 def kernel_times(ks, device, smi):
     """Each stencil kernel at the main path's shape: the bare launch, the
     wrapper and the plain version back to back, and the bare launch with
-    the L2 flushed before it."""
+    the L2 evicted before it by a read (clean) and by a write (dirty)."""
     kernels = []
     for name, shape, kernel, plain in (
             ("stencil5_matvec", (N2D + 1,) * 2, ks.stencil5_matvec,
@@ -3399,18 +3640,7 @@ def kernel_times(ks, device, smi):
         arrays = [torch.randn(shape, generator=g, device=device,
                               dtype=torch.float32)
                   for _ in range(n_in)]
-        # the bare launch (no input checks, preallocated y) times the
-        # kernel; the wrapper adds its host-side checks and allocation
-        entry = ks._entry(name, n_in + 1, len(shape))
-        y = torch.empty_like(arrays[-1])
-        ptrs = [a.data_ptr() for a in arrays] + [y.data_ptr()]
-        stream = torch.cuda.current_stream().cuda_stream
-
-        def bare():
-            err = entry(*ptrs, *shape, 4, stream)
-            if err:
-                raise RuntimeError(f"{name}: cudaError {err}")
-
+        bare = bare_launch(ks, name, arrays)
         # kernel and plain version in turns; keep the faster of two each
         times = {"bare": [], "wrapper": [], "plain": []}
         for _ in range(2):
@@ -3419,35 +3649,37 @@ def kernel_times(ks, device, smi):
             times["plain"].append(cuda_ms(lambda: plain(*arrays), 200))
         t_k, t_w, t_p = (min(times[k]) for k in ("bare", "wrapper", "plain"))
         # back-to-back launches find the inputs in the 50 MB L2 (stencil5's
-        # 29 MB fit): time each launch alone after writing 128 MB, which
-        # evicts the L2, so the kernel reads from HBM as a solver's would
-        flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device=device)
-        ev = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(50)]
-        bare()
-        for a, e in ev:
-            flush.fill_(1.0)
-            a.record()
-            bare()
-            e.record()
-        torch.cuda.synchronize()
-        cold = [a.elapsed_time(e) for a, e in ev]
-        t_cold = float(np.median(cold))
-        del flush
+        # 29 MB fit): time each launch alone after evicting the L2, so the
+        # kernel reads from HBM as a solver's first matvec would.  Reading
+        # a 128 MB buffer written once leaves the L2 holding clean lines
+        # that the kernel does not use ("clean").  Writing 128 MB leaves it
+        # full of dirty lines, each of which the kernel's loads first write
+        # back to HBM inside the timed window ("dirty"): printed beside it
+        clean_buf = torch.ones(32 * 2 ** 20, dtype=torch.float32,
+                               device=device)
+        acc = torch.empty((), dtype=torch.float32, device=device)
+        dirty_buf = torch.empty_like(clean_buf)
+        clean = cold_launches(bare, lambda: torch.sum(clean_buf, 0, out=acc))
+        dirty = cold_launches(bare, lambda: dirty_buf.fill_(1.0))
+        del clean_buf, dirty_buf
         nbytes = (n_in + 1) * 4 * math.prod(shape)  # inputs and y
         # one multiply per term and one add between terms, per element
         flops = (2 * n_in - 3) * math.prod(shape)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOP_PER_S * 1e3
         bound = max(t_bytes, t_ops)
+        cold = "; ".join(
+            f"{label}: median {np.median(c) * 1e3:.2f} µs, min "
+            f"{min(c) * 1e3:.2f} ({bound / np.median(c):.0%} and "
+            f"{bound / min(c):.0%} of the bound)"
+            for label, c in (("after reading 128 MB (clean L2)", clean),
+                             ("after writing 128 MB (dirty L2)", dirty)))
         log(f"{name} {shape} f32, {nbytes / 1e6:.1f} MB per call: kernel "
             f"{t_k * 1e3:.2f} µs ({nbytes / t_k / 1e6:.0f} GB/s effective, "
             f"{bound / t_k:.0%} of the {bound * 1e3:.2f} µs bound), through "
             f"the wrapper {t_w * 1e3:.2f} µs, plain torch {t_p * 1e3:.2f} µs "
-            f"({nbytes / t_p / 1e6:.0f} GB/s); with the L2 flushed before "
-            f"each launch, median of 50: {t_cold * 1e3:.2f} µs (min "
-            f"{min(cold) * 1e3:.2f}, {bound / t_cold:.0%} of the bound) "
-            f"[{smi}]")
+            f"({nbytes / t_p / 1e6:.0f} GB/s); each launch alone with the L2 "
+            f"evicted before it, 50 launches: {cold} [{smi}]")
         kernels.append(dict(name=name, ms=t_k, plain_ms=t_p, bound_ms=bound,
                             bound_by="bytes" if t_bytes >= t_ops
                             else "operations"))
@@ -3496,6 +3728,7 @@ def main():
     timed_phase("17", phase_navier_stokes, pt, ks, device, rows)
     timed_phase("18", phase_ns_scalar, pt, ks, device, rows)
     timed_phase("19", phase_ns_card_vs_cpu, pt, ks, device)
+    timed_phase("20", phase_periphery, pt, ks, device, rows)
     timed = timed_phase("7", phase_times, pt, ks, rows, device, smi)
     replaces = {"stencil5_matvec": "penguin_tpu/pallas_kernels/stencil.py:250",
                 "stencil7_matvec": "penguin_tpu/pallas_kernels/stencil.py:220"}

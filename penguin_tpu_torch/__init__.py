@@ -2,20 +2,28 @@
 
 A second package beside the JAX one, which stays the reference.  It keeps
 the JAX package's module and public names; inside it works on torch tensors
-with an explicit dtype and device.  So far it covers mesh and geometry,
-the static, space-time and narrow-band capacity builds with their cut
-moments, the diffusion (with the cross-moment correction) and convection
-operators, the masked mono/diph assembly, the matrix-free Krylov and dense
-solvers (``linsolve``), marker front tracking (``front_tracking``,
-``front_tracking1d``), the scalar diffusion, advection-diffusion and Darcy
-solvers, the prescribed-motion diffusion solvers
-(``solvers.moving_diffusion``), and the backward-Euler heat stepper ``solvers.FastHeatBE``, whose
-CG matvec runs through the hand-written CUDA stencil kernels of
-``kernels`` on a CUDA device.  It never imports JAX.
+with an explicit dtype and device.  It covers:
 
-Entry points that make tensors put them on the CUDA device unless they are
-given a device (``device="cpu"`` for the CPU) or a capacity to follow;
-without a CUDA device such a call raises.
+- mesh and geometry, the static, space-time and narrow-band capacity
+  builds with their cut moments (``capacity``, ``quadrature``), the
+  diffusion (with the cross-moment correction) and convection operators,
+  the masked mono/diph assembly and the matrix-free Krylov and dense
+  solvers (``linsolve``);
+- marker front tracking (``front_tracking``, ``front_tracking1d``);
+- the solvers of ``solvers``: scalar diffusion, advection-diffusion and
+  Darcy; the prescribed-motion diffusion solvers; the 1D, marker and
+  height-function Stefan solvers with the species and binary-alloy ones;
+  static, two-phase and moving-boundary Stokes; Navier-Stokes with the
+  stream-vorticity and coupled scalar solvers; and the backward-Euler heat
+  stepper ``FastHeatBE``, whose CG matvec runs through the hand-written
+  CUDA stencil kernels of ``kernels`` on a CUDA device;
+- the periphery: ``checkpoint`` (an ``.npz`` layout that both packages
+  read), ``diagnostics`` (CUDA-synced timers, ``torch.profiler`` traces,
+  Krylov histories), ``vtk`` and ``viz`` (matplotlib).
+
+It never imports JAX.  Entry points that make tensors put them on the CUDA
+device unless they are given a device (``device="cpu"`` for the CPU) or a
+capacity to follow; without a CUDA device such a call raises.
 """
 
 from .mesh import Mesh, SpaceTimeMesh
@@ -41,6 +49,8 @@ from .boundary import (
     InterfaceConditions,
 )
 from .phase import Phase, Fluid
+from .checkpoint import (checkpoint_solver, load_checkpoint, restore_solver,
+                         save_checkpoint)
 from .convert import capacity_from_numpy, capacity_to_numpy
 from .convergence import check_convergence, check_convergence_diph, lp_norm
 from .utils import clamp_merge_small_cells
@@ -69,6 +79,10 @@ __all__ = [
     "InterfaceConditions",
     "Phase",
     "Fluid",
+    "save_checkpoint",
+    "load_checkpoint",
+    "checkpoint_solver",
+    "restore_solver",
     "capacity_from_numpy",
     "capacity_to_numpy",
     "check_convergence",

@@ -35,7 +35,9 @@ def test_import_leaves_no_jax():
             "penguin_tpu_torch.solvers.moving_stokes, "
             "penguin_tpu_torch.solvers.navierstokes, "
             "penguin_tpu_torch.solvers.ns_scalar, "
-            "penguin_tpu_torch.solvers.streamvort; "
+            "penguin_tpu_torch.solvers.streamvort, "
+            "penguin_tpu_torch.checkpoint, penguin_tpu_torch.diagnostics, "
+            "penguin_tpu_torch.vtk, penguin_tpu_torch.viz; "
             "print(any(m == 'jax' or m.startswith('jax.') "
             "for m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -78,12 +80,15 @@ def test_public_names_follow_the_jax_package():
                 "solvers.stefan2d_height", "solvers.concentration",
                 "solvers.binary", "solvers.stokes", "solvers.stokes_diph",
                 "solvers.moving_stokes", "solvers.navierstokes",
-                "solvers.ns_scalar", "solvers.streamvort"):
+                "solvers.ns_scalar", "solvers.streamvort", "checkpoint",
+                "diagnostics", "vtk", "viz"):
         j = importlib.import_module("penguin_tpu." + mod)
         t = importlib.import_module("penguin_tpu_torch." + mod)
         missing = [n for n in j.__all__ if not hasattr(t, n)]
         assert not missing, (mod, missing)
         assert set(j.__all__) <= set(t.__all__), mod
+    import penguin_tpu
+    assert set(penguin_tpu.__all__) <= set(tpt.__all__)
     from penguin_tpu_torch import solvers
     import penguin_tpu.solvers as jsolvers
     for name in ("MovingDiffusionUnsteadyMono", "MovingDiffusionUnsteadyDiph",
@@ -101,6 +106,26 @@ def test_public_names_follow_the_jax_package():
                  "PassiveCoupling", "PicardCoupling"):
         assert name in jsolvers.__all__
         assert name in solvers.__all__ and hasattr(solvers, name)
+
+
+def _from_checkpoint(load):
+    """A one-tensor CPU checkpoint read back by ``load(path)`` in a
+    temporary directory."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "ck.npz"
+        tpt.save_checkpoint(path, {"x": torch.zeros(3, dtype=torch.float64)})
+        return load(path)
+
+
+class _Bare:
+    """A solver with no state and no capacity to follow."""
+
+
+def _restored(path):
+    solver = _Bare()
+    tpt.restore_solver(path, solver)
+    return solver.x
 
 
 def _entry_points():
@@ -156,6 +181,9 @@ def _entry_points():
         "markers_from_numpy":
             lambda: markers_from_numpy(np.zeros((4, 2))),
         "state_from_numpy": lambda: state_from_numpy([np.zeros(3)])[0],
+        "load_checkpoint": lambda: _from_checkpoint(
+            lambda p: tpt.load_checkpoint(p)[0]["x"]),
+        "restore_solver": lambda: _from_checkpoint(_restored),
         "VelocityBorder": lambda: stokes.VelocityBorder(
             mesh, tpt.BorderConditions({"left": tpt.Dirichlet(0.0)}),
             0).pos[0],
