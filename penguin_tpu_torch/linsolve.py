@@ -173,17 +173,18 @@ def _chunked(body, state, live, maxiter):
     return state, int(host_read(k))
 
 
-def pcg(apply_fn, b, x0, Minv=None, tol=1e-8, maxiter=500):
+def pcg(apply_fn, b, x0, Minv=None, tol=1e-8, maxiter=500, *, _dot=_tdot):
     """Jacobi(/diagonal)-preconditioned conjugate gradients on trees.
 
     ``Minv``: tree of inverse-diagonal entries, or a callable
     ``r -> M⁻¹r`` (None = identity).  Returns ``(x, iters, relres)`` with
     ``relres = ||r||/||b||``.  No best-iterate tracking and no stagnation
     patience, as in the JAX version: either makes x a discontinuous
-    function of (A, b)."""
+    function of (A, b).  ``parallel.sharding`` passes a private ``_dot``
+    that sums the ranks' partial dots, so every rank sees the same value."""
     prec = _make_prec(Minv)
     tiny, tol = _guards(b, tol)
-    bb = torch.clamp_min(_tdot(b, b), tiny)
+    bb = torch.clamp_min(_dot(b, b), tiny)
     bound = (tol * tol) * bb
 
     r0 = _tsub(b, apply_fn(x0))
@@ -192,19 +193,19 @@ def pcg(apply_fn, b, x0, Minv=None, tol=1e-8, maxiter=500):
     def body(st, active):
         x, r, p, rz, rr = st
         Ap = apply_fn(p)
-        pAp = _tdot(p, Ap)
+        pAp = _dot(p, Ap)
         alpha = rz / torch.where(pAp != 0, pAp, 1.0)
         x_n = _taxpy(alpha, p, x)
         r_n = _taxpy(-alpha, Ap, r)
         z = prec(r_n)
-        rz_n = _tdot(r_n, z)
+        rz_n = _dot(r_n, z)
         beta = rz_n / torch.where(rz != 0, rz, 1.0)
         p_n = _taxpy(beta, p, z)
-        return _select(active, (x_n, r_n, p_n, rz_n, _tdot(r_n, r_n)), st)
+        return _select(active, (x_n, r_n, p_n, rz_n, _dot(r_n, r_n)), st)
 
     # no isfinite() bailout either: a transient f32 overflow (rr = Inf)
     # keeps iterating through `Inf > bound` and recovers
-    st, k = _chunked(body, (x0, r0, z0, _tdot(r0, z0), _tdot(r0, r0)),
+    st, k = _chunked(body, (x0, r0, z0, _dot(r0, z0), _dot(r0, r0)),
                      lambda st: st[4] > bound, maxiter)
     return st[0], k, torch.sqrt(st[4] / bb)
 

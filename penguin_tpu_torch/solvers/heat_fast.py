@@ -61,31 +61,32 @@ def _dot(a, b):
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
-def _cg(coeffs, dinv, tol2, maxiter, b, x):
+def _cg(coeffs, dinv, tol2, maxiter, b, x, matvec=_apply_stencil, dot=_dot):
     """Jacobi-preconditioned CG from ``x``; returns (x, iterations) with the
-    iteration count as a 0-d device tensor."""
-    r = b - _apply_stencil(coeffs, x)
+    iteration count as a 0-d device tensor.  ``matvec(coeffs, x)`` and
+    ``dot`` are the solver's ``_cg_matvec`` and ``_cg_dot``."""
+    r = b - matvec(coeffs, x)
     z = dinv * r
     p = z
-    rz = _dot(r, z)
-    bound = tol2 * torch.clamp_min(_dot(b, b), 1e-30)
-    rr = _dot(r, r)
+    rz = dot(r, z)
+    bound = tol2 * torch.clamp_min(dot(b, b), 1e-30)
+    rr = dot(r, r)
     k = torch.zeros((), dtype=torch.int64, device=b.device)
     for _ in range(0, maxiter, CG_CHUNK):
         for _ in range(CG_CHUNK):
             active = (rr > bound) & (k < maxiter)
-            Ap = _apply_stencil(coeffs, p)
-            pAp = _dot(p, Ap)
+            Ap = matvec(coeffs, p)
+            pAp = dot(p, Ap)
             alpha = torch.where(active, rz / torch.where(active, pAp, 1.0), 0.0)
             x = x + alpha * p
             r = r - alpha * Ap
             z = dinv * r
-            rz_new = _dot(r, z)
+            rz_new = dot(r, z)
             beta = torch.where(active, rz_new / torch.where(active, rz, 1.0),
                                0.0)
             p = z + beta * p
             rz = torch.where(active, rz_new, rz)
-            rr = _dot(r, r)
+            rr = dot(r, r)
             k = k + active.to(k.dtype)
         if not bool((rr > bound) & (k < maxiter)):
             break
@@ -169,6 +170,12 @@ class FastHeatBE:
         self.active = active
         self.dtype = dtype
 
+    # the CG's matvec and dot: ``parallel.sharding`` replaces them on one
+    # rank's copy (a halo exchange before the stencil, a sum over the ranks
+    # after the dot)
+    _cg_matvec = staticmethod(_apply_stencil)
+    _cg_dot = staticmethod(_dot)
+
     # ------------------------------------------------------------------
     def step(self, Tw, x0=None):
         """One BE step: returns (T_{n+1}, cg_iters) with ``cg_iters`` a 0-d
@@ -176,10 +183,11 @@ class FastHeatBE:
         b = self._Va * Tw + self._rhs
         x0 = Tw if x0 is None else x0
         return _cg(self._coeffs, self._dinv, self._tol2, self._cg_maxiter,
-                   b, x0.contiguous())
+                   b, x0.contiguous(), matvec=self._cg_matvec,
+                   dot=self._cg_dot)
 
     def matvec(self, x):
-        return _apply_stencil(self._coeffs, x.contiguous())
+        return self._cg_matvec(self._coeffs, x.contiguous())
 
     def _steps(self, T0, n_steps):
         # quadratically extrapolated warm start (x0 = 3Tn - 3Tn-1 + Tn-2)

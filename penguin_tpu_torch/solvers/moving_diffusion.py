@@ -383,25 +383,11 @@ def _reduced_phase(ops, Va, Vb, psip, Id, Tg, TWp, f, C_sp, border, t, dt):
     return apply, b, dG, act
 
 
-def solve_moving_mono_step_reduced(cap_st, D, f, bc_i, border, x_prev, t, dt,
-                                   tol=1e-9, maxiter=500, g_override=None,
-                                   x0=None):
-    """BE slab solve with the interface unknown eliminated analytically.
-
-    For a Dirichlet-type interface closure (``ib == 0``: Dirichlet or
-    GibbsThomson) the gamma row is ``Gamma T_g = Gamma g``, so ``T_g := g``
-    on cut cells and the slab system collapses to one SPD bulk system::
-
-        (Va + Psi+ Id G^T W G) T_w = Vb T_w^n + V f - Id G^T W H (Psi+ g) + dV g
-
-    the moving-interface analogue of the FastHeatBE elimination
-    (solvers/heat_fast.py).  Half the DOFs of the coupled system and CG
-    instead of BiCGStab (one matvec per iteration); under BE, Psi+ = 1 on
-    every live cell so the operator restricted to the active set is
-    symmetric whenever the diffusivity is uniform.
-
-    Returns ``((T_w, T_g), iters, relres)`` shaped exactly like the full
-    solve (T_g filled with g on active interface cells)."""
+def _reduced_slab(cap_st, D, f, bc_i, border, x_prev, t, dt,
+                  g_override=None, x0=None):
+    """The pieces of :func:`solve_moving_mono_step_reduced`'s CG: (apply,
+    rhs, inverse diagonal, initial guess, T_g).  ``parallel.sharding``
+    builds them on one rank's window."""
     ops, Va, Vb, Gamma0, C_sp, Cg_sp = slice_spacetime(cap_st)
     ia, ib = build_I_bc(bc_i)
     if not (np.isscalar(ib) and ib == 0.0):
@@ -431,7 +417,32 @@ def solve_moving_mono_step_reduced(cap_st, D, f, bc_i, border, x_prev, t, dt,
     # the previous iterate back would accumulate junk across iterations.
     guess = torch.where(Va > 0, x0[0], TWp) if x0 is not None else TWp
     xinit = torch.where(act, guess, 0.0)
-    TW, iters, relres = pcg(apply, b, xinit, Minv=1.0 / dG, tol=tol,
+    return apply, b, 1.0 / dG, xinit, Tg
+
+
+def solve_moving_mono_step_reduced(cap_st, D, f, bc_i, border, x_prev, t, dt,
+                                   tol=1e-9, maxiter=500, g_override=None,
+                                   x0=None):
+    """BE slab solve with the interface unknown eliminated analytically.
+
+    For a Dirichlet-type interface closure (``ib == 0``: Dirichlet or
+    GibbsThomson) the gamma row is ``Gamma T_g = Gamma g``, so ``T_g := g``
+    on cut cells and the slab system collapses to one SPD bulk system::
+
+        (Va + Psi+ Id G^T W G) T_w = Vb T_w^n + V f - Id G^T W H (Psi+ g) + dV g
+
+    the moving-interface analogue of the FastHeatBE elimination
+    (solvers/heat_fast.py).  Half the DOFs of the coupled system and CG
+    instead of BiCGStab (one matvec per iteration); under BE, Psi+ = 1 on
+    every live cell so the operator restricted to the active set is
+    symmetric whenever the diffusivity is uniform.
+
+    Returns ``((T_w, T_g), iters, relres)`` shaped exactly like the full
+    solve (T_g filled with g on active interface cells)."""
+    apply, b, minv, xinit, Tg = _reduced_slab(
+        cap_st, D, f, bc_i, border, x_prev, t, dt, g_override=g_override,
+        x0=x0)
+    TW, iters, relres = pcg(apply, b, xinit, Minv=minv, tol=tol,
                             maxiter=maxiter)
     return (TW, Tg), iters, relres
 

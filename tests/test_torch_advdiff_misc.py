@@ -20,6 +20,7 @@ from penguin_tpu_torch import interpolation as ti, utils as tu
 from penguin_tpu_torch.convert import (CAPACITY_FIELDS, capacity_from_numpy,
                                        capacity_to_numpy)
 from penguin_tpu_torch.solvers import advdiff as tad, darcy as tdarcy
+from torch_stefan_cases import one_thread  # noqa: F401  (autouse fixture)
 
 CPU = "cpu"
 KEYS = ("left", "right", "top", "bottom")

@@ -10,6 +10,7 @@ import penguin_tpu as jpt
 from penguin_tpu import assembly as ja
 import penguin_tpu_torch as tpt
 from penguin_tpu_torch import assembly as ta
+from torch_stefan_cases import one_thread  # noqa: F401  (autouse fixture)
 
 
 @pytest.fixture(scope="module")

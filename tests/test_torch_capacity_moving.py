@@ -30,6 +30,7 @@ from penguin_tpu_torch.solvers.moving_diffusion import \
 
 from test_torch_quadrature_capacity import (F64_TOL, _jax_fields,
                                             compare_capacity)
+from torch_stefan_cases import one_thread  # noqa: F401  (autouse fixture)
 
 CPU = dict(device="cpu")
 N = 24

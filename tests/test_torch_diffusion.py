@@ -15,6 +15,7 @@ from penguin_tpu.solvers import diffusion as jd
 import penguin_tpu_torch as tpt
 from penguin_tpu_torch.convert import CAPACITY_FIELDS, capacity_from_numpy
 from penguin_tpu_torch.solvers import FastHeatBE, diffusion as td
+from torch_stefan_cases import one_thread  # noqa: F401  (autouse fixture)
 
 CPU = "cpu"
 KEYS = ("left", "right", "top", "bottom")

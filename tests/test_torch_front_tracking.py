@@ -16,6 +16,7 @@ import penguin_tpu_torch as tpt
 from penguin_tpu_torch import front_tracking as tft
 from penguin_tpu_torch import front_tracking1d as tft1
 from penguin_tpu_torch.capacity import compute_capacity_spacetime
+from torch_stefan_cases import one_thread  # noqa: F401  (autouse fixture)
 
 CPU = dict(device="cpu")
 
@@ -260,7 +261,7 @@ def test_sdf_differentiated_markers():
     assert abs(float(area_of(m)) - np.pi) < 2e-2
     g = torch.func.grad(area_of)(m).numpy()
     assert np.isfinite(g).all() and np.abs(g).max() > 0
-    jg = np.asarray(jax.grad(jarea_of)(jnp.asarray(m.numpy())))
+    jg = np.asarray(jax.jit(jax.grad(jarea_of))(jnp.asarray(m.numpy())))
     assert np.abs(g - jg).max() <= 1e-9 * np.abs(jg).max()
 
 

@@ -12,6 +12,7 @@ import penguin_tpu_torch as tpt
 from penguin_tpu_torch.convert import CAPACITY_FIELDS, capacity_from_numpy
 from penguin_tpu_torch.solvers import FastHeatBE
 from penguin_tpu_torch.solvers import heat_fast as thf
+from torch_stefan_cases import one_thread  # noqa: F401  (autouse fixture)
 
 BORDERS_2D = ("left", "right", "top", "bottom")
 

@@ -10,6 +10,7 @@ import torch
 
 from penguin_tpu import linsolve as jl
 from penguin_tpu_torch import linsolve as tl
+from torch_stefan_cases import one_thread  # noqa: F401  (autouse fixture)
 
 RTOL = 1e-10
 

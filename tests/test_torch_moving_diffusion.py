@@ -26,6 +26,7 @@ from penguin_tpu_torch.capacity import compute_capacity_spacetime as t_slab
 from penguin_tpu_torch.solvers import (DiffusionUnsteadyDiph,
                                        DiffusionUnsteadyMono)
 from penguin_tpu_torch.solvers import moving_diffusion as tmd
+from torch_stefan_cases import one_thread  # noqa: F401  (autouse fixture)
 
 CPU = dict(device="cpu")
 N = 16

@@ -11,6 +11,7 @@ import penguin_tpu as jpt
 from penguin_tpu import operators as jop
 import penguin_tpu_torch as tpt
 from penguin_tpu_torch import operators as top
+from torch_stefan_cases import one_thread  # noqa: F401  (autouse fixture)
 
 
 def dense_dm(n, periodic=False):

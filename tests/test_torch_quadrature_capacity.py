@@ -11,6 +11,7 @@ from penguin_tpu import quadrature as jq
 import penguin_tpu_torch as tpt
 from penguin_tpu_torch import quadrature as tq
 from penguin_tpu_torch.convert import CAPACITY_FIELDS, capacity_to_numpy
+from torch_stefan_cases import one_thread  # noqa: F401  (autouse fixture)
 
 
 def _np(a):

@@ -15,6 +15,7 @@ from penguin_tpu import assembly as ja
 import penguin_tpu_torch as tpt
 from penguin_tpu_torch import assembly as ta
 from penguin_tpu_torch.convert import CAPACITY_FIELDS, capacity_from_numpy
+from torch_stefan_cases import one_thread  # noqa: F401  (autouse fixture)
 
 N, L = 24, 4.0
 TOL = 1e-12

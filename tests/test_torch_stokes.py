@@ -155,11 +155,19 @@ def _inflow_case(pkg, mod, outflow, gauge=None, n=16):
                           gauge or mod.PinPressureGauge(), pkg.Dirichlet(0.0))
 
 
-def test_outflow_channel_mass_conservation():
+@pytest.fixture(scope="module")
+def free_outflow():
+    """The channel with a free Outflow exit, solved in both packages (read,
+    never changed, by the tests that take it)."""
+    return both(lambda pkg, mod: _inflow_case(pkg, mod, pkg.Outflow()),
+                "lstsq")
+
+
+def test_outflow_channel_mass_conservation(free_outflow):
     """Parabolic inflow and an Outflow exit: the flux through every
     interior column equals the inflow."""
     n = 16
-    s = both(lambda pkg, mod: _inflow_case(pkg, mod, pkg.Outflow()), "lstsq")
+    s = free_outflow
     ux = s.velocity(0).numpy()[:n, :n]
     assert np.isfinite(ux).all()
     q = ux.sum(axis=1)
@@ -191,14 +199,13 @@ def test_mean_pressure_gauge_hydrostatic():
     assert np.allclose(np.abs(grad), 1.0, atol=1e-8)
 
 
-def test_outflow_prescribed_pressure_sets_level():
+def test_outflow_prescribed_pressure_sets_level(free_outflow):
     """Outflow(pressure): the same velocity as Outflow() and the outlet
     plane at -p_ref (the state stores -p_physical)."""
     n, p_ref = 16, 2.5
     s_ref = both(lambda pkg, mod: _inflow_case(pkg, mod, pkg.Outflow(p_ref)),
                  "lstsq")
-    s_free = both(lambda pkg, mod: _inflow_case(pkg, mod, pkg.Outflow()),
-                  "lstsq")
+    s_free = free_outflow
     for d in range(2):
         du = (s_free.velocity(d) - s_ref.velocity(d))[:n, :n].abs().max()
         assert du < 1e-8

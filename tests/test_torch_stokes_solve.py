@@ -28,6 +28,14 @@ def pair():
     return sj, st
 
 
+@pytest.fixture(scope="module")
+def jax_direct(pair):
+    """JAX's direct steady solution of the pair's case, solved once."""
+    sj, _ = pair
+    sj.solve(method="direct")
+    return sj.x
+
+
 def _carry(x):
     return tuple(torch.as_tensor(np.array(a)) for a in x)
 
@@ -44,12 +52,11 @@ def test_steady_solve_matches_jax(pair, method):
         assert abs(st.krylov_relres - sj.krylov_relres) <= 1e-3 * 1e-10
 
 
-def test_unsteady_direct_and_pgmres_match_jax(pair):
+def test_unsteady_direct_and_pgmres_match_jax(pair, jax_direct):
     """Three CN steps from half the steady solution, by one reused LU and
     by the preconditioned JAX-batched GMRES."""
     sj, st = pair
-    sj.solve(method="direct")
-    x0 = tuple(0.5 * a for a in sj.x)
+    x0 = tuple(0.5 * a for a in jax_direct)
     for method in ("direct", "pgmres"):
         xj = sj.solve_unsteady(0.05, 0.15, scheme="CN", method=method, x0=x0)
         xt = st.solve_unsteady(0.05, 0.15, scheme="CN", method=method,
@@ -57,13 +64,12 @@ def test_unsteady_direct_and_pgmres_match_jax(pair):
         C.close(xt, xj, 1e-9)
 
 
-def test_bicgstab_paths_within_the_reference_spread(pair):
+def test_bicgstab_paths_within_the_reference_spread(pair, jax_direct):
     """``schur_bicgstab`` and the unsteady ``pbicgstab``: every step's
     relres ≤ tol, and the port within 10× of how far JAX's own result moves
     when its start moves by a relative 1e-15."""
     sj, st = pair
-    sj.solve(method="direct")
-    x0 = tuple(0.5 * a for a in sj.x)
+    x0 = tuple(0.5 * a for a in jax_direct)
     x0p = tuple(a * (1 + 1e-15) for a in x0)
     runs = []
     for s, start in ((sj, x0), (sj, x0p), (st, _carry(x0))):
@@ -78,13 +84,13 @@ def test_bicgstab_paths_within_the_reference_spread(pair):
         C.close(runs[2][k], runs[0][k], 10 * max(spread, 1e-12))
 
 
-def test_forces_match_jax(pair):
+def test_forces_match_jax(pair, jax_direct):
     """The force diagnostics on one state (JAX's direct solution carried
     across): domain sum and interface traction with their parts, the
     traced form, and the drag/lift coefficients."""
     sj, st = pair
-    sj.solve(method="direct")
-    st.x = _carry(sj.x)
+    sj.x = jax_direct
+    st.x = _carry(jax_direct)
     for parts in (False, True):
         got = np.array(st.force_diagnostics(parts=parts)).ravel()
         want = np.array(sj.force_diagnostics(parts=parts)).ravel()

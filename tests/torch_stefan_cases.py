@@ -1,8 +1,7 @@
 """Shared set-up of the port's phase-change tests: the Frank-disk cases of
 the 2D Stefan tests (``test_torch_stefan2d*.py``), a solid disk of radius S
 at t0 = 1 growing into liquid undercooled to T_INF on an 8 × 8 box, in
-either package, and the one-thread fixture of every phase-change test
-module."""
+either package, and the one-thread fixture of every port test module."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -92,7 +91,7 @@ def _mean_radius(markers):
 
 @pytest.fixture(autouse=True, scope="module")
 def one_thread():
-    """The phase-change tests' tensors are small: one intra-op thread does
+    """The port's test tensors are small: one intra-op thread does
     their work as fast, and keeps parallel test workers from oversubscribing
     the cores.  Imported into each test module, where pytest uses it."""
     n = torch.get_num_threads()
