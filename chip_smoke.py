@@ -50,9 +50,12 @@ the runs without a break; a ``diagnostics.trace`` of FastHeatBE steps whose
 Chrome trace holds every stencil5 launch; ``diagnostics.timed`` against
 CUDA events; ``KrylovHistory`` around ``pcg``; VTK files of a solver on the
 card and its plot (where matplotlib is installed).  Then the decomposed
-path (phase 21): 4 ranks share the card over gloo and run the 1024² heat
-step (the stencil kernel on every rank's halo-grown block), the lid-cavity
-Stokes apply and the moving step, each held to the whole-grid run.  Last it
+path (phase 21): 4 ranks share the card over gloo and run, in one world,
+the 1024² heat step (the stencil kernel on every rank's halo-grown block),
+the lid-cavity Stokes apply and the moving step, the JAX dryruns' shrunk
+DFG channel at 256 × 128 in f64 by CN/AB2 pgmres and by implicit-Picard
+fgmres with the DCT-CG M, and the Stefan front-tracking step at 256² with
+256 markers, each held to the whole-grid run.  Last it
 times the steps, the slabs, the GN and Newton
 iterations, the Stokes and Navier-Stokes solves, their preconditioner and
 Krylov iterations, and the kernels (warm, and each launch alone after the
@@ -131,8 +134,8 @@ MOV_CONV_SIZES = (32, 64, 128)
 MOV_CONV_T = 0.05        # their end time (0.1 before: 205 slabs at 128²)
 FT_N = 512               # front-tracked slab: 512² mesh, 512 markers
 FT_MARKERS = 512
-# 1+1 slabs (1+5 before the phase-change phases; cut for the time limit)
-FT_SLABS = 1
+# one slab (1+5, then 1+1 before: cut for the time limit)
+FT_SLABS = 0
 
 # the phase-change path
 FRANK_S = 1.0            # the Frank disk: R(t) = S sqrt(t), from t0 = 1
@@ -140,8 +143,8 @@ FRANK_CENTER = (4.0, 4.0)
 STEF_DT = 0.02
 STEF_N = 256             # benchmarks/stefan2d_tpu.py's largest size: 256²,
 STEF_MARKERS = 256       # 256 markers, f32
-STEF_STEPS = 4           # 1+4 steps; the script runs 20 (1+10 before),
-                         # cut for time
+STEF_STEPS = 2           # 1+2 steps; the script runs 20 (1+10, then 1+4
+                         # before), cut for time
 STEF_RADIUS_TOL = 0.10   # that script's hard gate on the mean radius
 # the flagship's gates over its 1+4 steps: the mean radius within 1% of the
 # similarity solution (measured -0.18% on an H100; -0.31% over 1+10 steps)
@@ -160,7 +163,8 @@ STEF_SMALL_STEPS = 1     # 1+1 steps each, 1+2 for the two-phase leg whose
 # time limit (dt and the slab count scale with 1/nx)
 STEF1D_NX = 32
 HEIGHT_N = (48, 192)     # 4x tests/test_stefan2d_height.py's 12 × 48,
-HEIGHT_STEPS = 3         # over 1+3 of its 1+15 steps, cut for time
+HEIGHT_STEPS = 1         # over 1+1 of its 1+15 steps (1+3 before), cut
+                         # for time
 SPECIES_N = 256          # tests/test_concentration_binary.py's cases
 
 # the Stokes path (phases 14-16): the Taylor-Couette annulus of
@@ -181,6 +185,10 @@ COUETTE_ORDER = 1.4
 # f32 at 4x the benchmark's finest size, solve(tol=1e-5); the largest of
 # these whose schur_gmres converges is gated
 COUETTE_F32_SIZES = (512, 256, 128)
+COUETTE_F32_MAXITER = 200    # the 512² stall is read at 200 iterations
+                             # (2000 before, cut for time); the 256² run
+                             # that follows converges at 843 (its own cap
+                             # stays the solver's 2000)
 COUETTE_F32_TOL = 1e-5
 COUETTE_F32_ERR = 0.05   # profile error at the measured f32 floor
 # the lid cavity of tests/test_stokes.py:99, BE at dt = 1e-3 through
@@ -195,6 +203,9 @@ CAVITY_STEPS = 1         # 1+1 steps (the 1+10 asked for take 61 s at 32²;
                          # 1+3 before: cut for the time limit); one
                          # step at 1024²
 CAVITY_DT = 1e-3
+CAVITY_STALL_MAXITER = 200   # the 1024² stall read at 200 BiCGStab
+                             # iterations (the solver's 400 before, cut for
+                             # time)
 CAVITY_TOL = 1e-5
 CAVITY_DIV_TOL = 1e-4    # max|continuity residual| off the pin at 32²: the
                          # solve leaves relres 1e-5 of a ‖b‖ ≈ 5.7
@@ -203,10 +214,13 @@ STOKES_DIPH_N = 24       # 1.5x tests/test_stokes_diph.py's two-layer
                          # lstsq: cut for the time limit)
 GALILEAN_U0 = 0.5        # benchmarks/moving_couette_galilean.py
 GALILEAN_N = 24
+GALILEAN_STALL_MAXITER = 300   # the pgmres stall read at 300 iterations
+                               # (2000, i.e. 2040, before: cut for time)
 GALILEAN_STEPS = 12
 GALILEAN_ERR = 0.004144348872151926   # its csv, moment cut flux, n = 24
 MOVING_STOKES_N = 256    # the same problem in f32 by fgmres, 1+1 slabs
-MOVING_STOKES_SLABS = 1  # (1+3 took 36.8 s, the last two stalled: cut)
+MOVING_STOKES_SLABS = 0  # (1+3 took 36.8 s, the last two stalled: cut to
+                         # 1+1, then one slab for the time limit)
 MOVING_STOKES_TOL = 1e-5
 # fgmres converges the first slab and stalls on the later ones, in both
 # packages (the CPU, f32, 256²: JAX 90 iterations to 9.94e-6 then relres
@@ -242,7 +256,8 @@ DFG_JFNK_CUT = 2.5e-3    # JAX f32 and the port reach 1.97e-3 and 1.91e-3
 DFG_CUT_CD, DFG_CUT_DP = 5.5999, 0.07813
 DFG_CUT_TOL = 0.02
 DFG2_DT = 0.002
-DFG2_STEPS = 3           # from rest; St and Cd need 4000 steps: cut to 3
+DFG2_STEPS = 2           # from rest; St and Cd need 4000 steps: cut to 3,
+                         # then 2 for the time limit
 DFG2_TOL = 1e-6
 # in f32 the Picard sweeps' fgmres stalls at its 120 iterations in both
 # packages (JAX, x64 off, on the CPU: relres 1.7e-4-1.9e-4; the port on an
@@ -265,15 +280,26 @@ PERI_LAUNCHES = 256      # stencil7 launches timed by diagnostics.timed, well
                          # inside the device's queue of pending launches
 PERI_TIMED_SHARE = 0.9
 CVC_CHANNEL = (32, 16)
-# phase 7: repeats of each timing, all printed (3 before, cut to 2 for the
-# time limit)
-REPEATS = 2
+# phase 7: repeats of each timing, all printed (3, then 2 before, cut for
+# the time limit)
+REPEATS = 1
 # domain decomposition (phase 21): the heat bench row, the lid-cavity apply
-# and the moving step at the bench grid, 4 ranks (2 × 2) on the one card
+# and the moving step at the bench grid, the NS and Picard steps at the DFG
+# width of phase 17 (f64, as the JAX dryruns) and the Stefan step at phase
+# 11's width, 4 ranks (2 × 2) on the one card, in one world
 MC_N = 1024
 MC_RANKS = 4
 MC_HEAT_STEPS = 5        # one step from rest as in JAX, then 5 more
-MC_TIMEOUT = 300         # bounds the world and every collective in it
+MC_FLOW_N = DFG_N        # the JAX dryruns' shrunk channel at 256 × 128
+MC_NS_STEPS = 1          # the JAX dryrun's 3 and 2, cut for the time
+MC_PICARD_STEPS = 1      # limit: 120 pgmres and about 80 fgmres iterations
+                         # a step at 130-240 ms each (the AB2 steps run in
+                         # the CPU tests and dryrun_multichip)
+MC_STEF_N = STEF_N       # 256², 256 markers, f64
+MC_STEF_MARKERS = STEF_MARKERS
+MC_STEF_STEPS = 1        # marker steps: the JAX dryrun's 2, cut for the
+                         # time limit (the CPU tests run 2)
+MC_TIMEOUT = 900         # bounds the world and every collective in it
 
 
 def log(msg):
@@ -1032,7 +1058,8 @@ def phase_front(pt, device, rows, n=FT_N, n_markers=FT_MARKERS,
         f"1e-3)")
     if abs(va / area - 1.0) > 1e-3:
         raise AssertionError(f"front slab: sum(Va) {va} against area {area}")
-    rows["front"] = dict(mesh=mesh, body=body, params=params, T=T)
+    rows["front"] = dict(mesh=mesh, body=body, params=params, T=T,
+                         dense_s=t_dense)
     # the solver on that front, f32: heat enters from the interface at 1
     m32 = tuple(m.float() for m in (mk_a, mk_b))
     dt = 0.5 * h * h
@@ -1909,7 +1936,8 @@ def phase_stokes(pt, ks, device, rows, sizes=COUETTE_SIZES,
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        s.solve(tol=COUETTE_F32_TOL)
+        s.solve(tol=COUETTE_F32_TOL,
+                maxiter=COUETTE_F32_MAXITER if n == f32_sizes[0] else None)
         sync(device)
         wall = time.perf_counter() - t0
         peak = ((torch.cuda.max_memory_allocated() - base) / 2 ** 20
@@ -1937,7 +1965,9 @@ def phase_stokes(pt, ks, device, rows, sizes=COUETTE_SIZES,
         sync(device)
         t0 = time.perf_counter()
         s.solve_unsteady(CAVITY_DT, (steps + 0.5) * CAVITY_DT, scheme="BE",
-                         method="pbicgstab", tol=CAVITY_TOL)
+                         method="pbicgstab", tol=CAVITY_TOL,
+                         maxiter=CAVITY_STALL_MAXITER if n == cavity_n
+                         else None)
         sync(device)
         wall = time.perf_counter() - t0
         ux, uy = s.velocity(0), s.velocity(1)
@@ -2088,7 +2118,7 @@ def phase_moving_stokes(pt, ks, device, rows, n=GALILEAN_N,
     sync(device)
     t0 = time.perf_counter()
     s.solve(galilean_body, dt, 0.0, dt, x0=x0, p=4, s=1,
-            method="pgmres", tol=1e-10)
+            method="pgmres", tol=1e-10, maxiter=GALILEAN_STALL_MAXITER)
     sync(device)
     log(f"Galilean Couette {n}² f64, moment, pgmres over 1 slab in "
         f"{time.perf_counter() - t0:.2f} s: iterations/slab "
@@ -3076,14 +3106,22 @@ def phase_periphery(pt, ks, device, rows):
 
 
 def phase_multichip(pt, ks, device, smi, n=MC_N, ranks=MC_RANKS,
-                    heat_steps=MC_HEAT_STEPS):
+                    heat_steps=MC_HEAT_STEPS, flow_n=MC_FLOW_N,
+                    ns_steps=MC_NS_STEPS, picard_steps=MC_PICARD_STEPS,
+                    stef_n=MC_STEF_N, stef_markers=MC_STEF_MARKERS,
+                    stef_steps=MC_STEF_STEPS):
     """The decomposed path of ``parallel.sharding``: ``ranks`` processes
-    share the one card over gloo, each holding one block.  The whole-grid
-    results are computed here on the card first; every rank holds its block
-    to them under the JAX dryruns' bounds and raises on a mismatch, on a
-    grid-sized message in its ledger or on wrong halo traffic."""
-    log(f"== phase 21: domain decomposition, {ranks} ranks on the one card, "
-        f"{n}²")
+    share the one card over gloo, each holding one block, and run the six
+    dryruns.  The whole-grid results are computed here on the card while
+    the ranks start; every rank holds its block to them under the JAX
+    dryruns' bounds and raises on a mismatch, on a grid-sized message in
+    its ledger or on wrong halo traffic; the caller's gates hold the ranks'
+    Krylov counts and markers equal.  The NS, Picard and Stefan paths
+    launch no stencil kernel."""
+    log(f"== phase 21: domain decomposition, {ranks} ranks on the one card: "
+        f"heat, Stokes apply and moving step at {n}², NS and Picard at "
+        f"{flow_n[0]} × {flow_n[1]}, Stefan at {stef_n}² with {stef_markers} "
+        f"markers")
     from penguin_tpu_torch.parallel import sharding
     reset_launches(ks)
     t0 = time.perf_counter()
@@ -3091,7 +3129,11 @@ def phase_multichip(pt, ks, device, smi, n=MC_N, ranks=MC_RANKS,
         ranks, device, timeout_s=MC_TIMEOUT,
         heat=dict(grid=(n, n), steps=1 + heat_steps, maxiter=EASY[1],
                   timed=True),
-        stokes=dict(grid=(n, n)), moving=dict(grid=(n, n)))
+        stokes=dict(grid=(n, n)), moving=dict(grid=(n, n)),
+        ns=dict(grid=flow_n, steps=ns_steps),
+        picard=dict(grid=flow_n, steps=picard_steps),
+        stefan=dict(grid=(stef_n, stef_n), nm=stef_markers,
+                    steps=stef_steps))
     took = time.perf_counter() - t0
     heat, stokes, moving = out["heat"], out["stokes"], out["moving"]
     shape = heat["whole"]["states"][0].shape
@@ -3127,6 +3169,82 @@ def phase_multichip(pt, ks, device, smi, n=MC_N, ranks=MC_RANKS,
         log(f"moving rank {r}: max|x - x_whole| {rep['err']:.3g}, CG "
             f"{rep['iters']} iterations (whole {rep['whole_iters']}), relres "
             f"{rep['relres']:.3g}, halo {rep['halo']}, ledger {rep['ledger']}")
+    log_flow_and_stefan(out, smi)
+
+
+def _bytes_by_kind(ledger):
+    return {kind: row["bytes"] for kind, row in ledger.items()}
+
+
+def log_flow_and_stefan(out, smi):
+    """Phase 21's NS, Picard and Stefan reports: gates already held by the
+    ranks, their timings beside the whole-grid run's, the ledger's bytes
+    by kind and the stencil launches on each path (0, as phases 17-19 and
+    11 read them)."""
+    for name in ("ns", "picard", "stefan"):
+        run = out[name]
+        state = run["T"] if name == "stefan" else run["x"]
+        shape = run["whole"]["T" if name == "stefan" else "x"][0].shape
+        for a in state:
+            if a.shape != shape or not np.isfinite(a).all():
+                raise AssertionError(f"{name}: gathered state {a.shape}, "
+                                     f"finite {np.isfinite(a).all()}")
+        for r, rep in enumerate(run["ranks"]):
+            if any(rep["launches"].values()):
+                raise AssertionError(f"{name} rank {r} launched a stencil "
+                                     f"kernel: {rep['launches']}")
+    for name, what in (("ns", "pgmres"), ("picard", "fgmres")):
+        run = out[name]
+        whole = run["whole"]
+        tw = whole["timing"]
+        log(f"{name} whole grid on the card: {what} iterations "
+            f"{whole['iters']} ({tw['iterations']} in all sweeps), relres "
+            f"{whole['relres']}, one iteration "
+            f"{tw['ms_per_iteration']:.2f} ms (apply "
+            f"{tw['apply_ms_per_call']:.2f} ms, M {tw['M_ms_per_call']:.2f} "
+            f"ms a call), the run "
+            f"{whole['seconds']:.1f} s [{smi}]")
+        for r, rep in enumerate(run["ranks"]):
+            t = rep["timing"]
+            extra = (f"M on the key state max|y - y_whole| {rep['err_M']:.3g}"
+                     f" (scale {rep['scale_M']:.3g}), "
+                     if name == "picard" else "")
+            log(f"{name} rank {r}: {extra}max|x - x_whole| {rep['err']:.3g} "
+                f"(scale {rep['scale']:.3g}), {what} iterations "
+                f"{rep['iters']} (whole {rep['whole_iters']}; "
+                f"{t['iterations']} in all sweeps), relres "
+                f"{rep['relres']}, halo {rep['halo']}; one iteration "
+                f"{t['ms_per_iteration']:.2f} ms: apply "
+                f"{t['apply_ms_per_call']:.2f} ms and M "
+                f"{t['M_ms_per_call']:.2f} ms a call ({t['apply_calls']} and "
+                f"{t['M_calls']} calls), Gram-Schmidt all-reduces "
+                f"{t['gram_schmidt_all_reduce_ms_per_iteration']:.2f} ms, "
+                f"halo {t['halo_ms_per_iteration']:.2f} ms, DCT messages "
+                f"{t['dct_ms_per_iteration']:.2f} ms, M's all-reduces "
+                f"{t['M_reduce_ms_per_iteration']:.2f} ms an iteration; "
+                f"ledger bytes {_bytes_by_kind(rep['ledger'])}, grid-sized "
+                f"messages {rep['grid_messages']}, stencil launches "
+                f"{rep['launches']} [{smi}]")
+    run = out["stefan"]
+    whole = run["whole"]
+    log(f"stefan whole grid on the card: GN iterations {whole['gn_iters']}, "
+        f"BiCGStab {whole['krylov_iters']}, one GN iteration "
+        f"{whole['ms_per_gn_iteration']:.1f} ms, the run "
+        f"{whole['seconds']:.1f} s [{smi}]")
+    for r, rep in enumerate(run["ranks"]):
+        t = rep["timing"]
+        log(f"stefan rank {r}: max|T - T_whole| {rep['err_T']:.3g}, max|mk - "
+            f"mk_whole| {rep['err_mk']:.3g} (markers bit-equal on every "
+            f"rank), GN iterations {rep['gn_iters']} (whole "
+            f"{rep['whole_gn_iters']}), BiCGStab {rep['krylov_iters']}, halo "
+            f"{rep['halo']}; one GN iteration {t['ms_per_gn_iteration']:.1f} "
+            f"ms: window capacity build "
+            f"{t['capacity_ms_per_gn_iteration']:.1f} ms, slab solve "
+            f"{t['solve_ms_per_gn_iteration']:.1f} ms, normal-equation "
+            f"all-reduce {t['normal_equations_ms_per_gn_iteration']:.2f} ms; "
+            f"ledger bytes {_bytes_by_kind(rep['ledger'])}, largest message "
+            f"{rep['largest']} elements, stencil launches {rep['launches']} "
+            f"[{smi}]")
 
 
 def dct2_fft(x):
@@ -3624,8 +3742,8 @@ def moving_times(pt, rows, smi, device):
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    dense = [timed(lambda: tc.compute_capacity_spacetime(
-        fr["body"], fr["mesh"], 0.0, fr["T"], **kw))]
+    # phase 9's dense build (a second build on an H100 took the same)
+    dense = [fr["dense_s"]]
     band = [timed(lambda: tc.compute_capacity_spacetime(
         fr["body"], fr["mesh"], 0.0, fr["T"], band_budget="auto", **kw))
         for _ in range(REPEATS)]
@@ -3642,7 +3760,7 @@ def moving_times(pt, rows, smi, device):
         fr["body"], fr["mesh"], 0.0, fr["T"], band_budget=budget, **kw))
     m = fr["mesh"]
     log(f"marker slab {m.n[0]}² × {fr['params'][0].shape[0]} markers, f64, "
-        f"p=4 s=1: dense build s (once more after phase 9's): "
+        f"p=4 s=1: dense build s (phase 9's): "
         f"{', '.join(f'{t:.2f}' for t in dense)}; "
         f"band build with budget \"auto\" ({budget}, sized per call): "
         f"{', '.join(f'{t:.3f}' for t in band)}; with the budget given: "

@@ -111,6 +111,18 @@ def _tdot(a, b):
                for x, y in zip(_leaves(a), _leaves(b)))
 
 
+def _dots(reduce):
+    """``dots(*pairs)``: the tree dots of ``pairs``, a list.  ``reduce``
+    (the Krylov solvers' private ``_reduce``) maps a stacked tensor of this
+    process's partial sums to their sums over the ranks, so dots that are
+    independent of each other travel in one reduction; ``None`` is the
+    whole-grid path, each dot on its own."""
+    if reduce is None:
+        return lambda *pairs: [_tdot(a, b) for a, b in pairs]
+    return lambda *pairs: list(reduce(torch.stack(
+        [_tdot(a, b) for a, b in pairs])).unbind())
+
+
 def _taxpy(alpha, x, y):
     return _tree_map(lambda a, b: alpha * a + b, x, y)
 
@@ -173,54 +185,60 @@ def _chunked(body, state, live, maxiter):
     return state, int(host_read(k))
 
 
-def pcg(apply_fn, b, x0, Minv=None, tol=1e-8, maxiter=500, *, _dot=_tdot):
+def pcg(apply_fn, b, x0, Minv=None, tol=1e-8, maxiter=500, *,
+        _reduce=None):
     """Jacobi(/diagonal)-preconditioned conjugate gradients on trees.
 
     ``Minv``: tree of inverse-diagonal entries, or a callable
     ``r -> M⁻¹r`` (None = identity).  Returns ``(x, iters, relres)`` with
     ``relres = ||r||/||b||``.  No best-iterate tracking and no stagnation
     patience, as in the JAX version: either makes x a discontinuous
-    function of (A, b).  ``parallel.sharding`` passes a private ``_dot``
-    that sums the ranks' partial dots, so every rank sees the same value."""
+    function of (A, b).  ``parallel.sharding`` passes a private
+    ``_reduce`` that sums the ranks' partial dots (see :func:`_dots`), so
+    every rank sees the same values."""
     prec = _make_prec(Minv)
+    dots = _dots(_reduce)
     tiny, tol = _guards(b, tol)
-    bb = torch.clamp_min(_dot(b, b), tiny)
-    bound = (tol * tol) * bb
-
     r0 = _tsub(b, apply_fn(x0))
     z0 = prec(r0)
+    bb, rz0, rr0 = dots((b, b), (r0, z0), (r0, r0))
+    bb = torch.clamp_min(bb, tiny)
+    bound = (tol * tol) * bb
 
     def body(st, active):
         x, r, p, rz, rr = st
         Ap = apply_fn(p)
-        pAp = _dot(p, Ap)
+        pAp, = dots((p, Ap))
         alpha = rz / torch.where(pAp != 0, pAp, 1.0)
         x_n = _taxpy(alpha, p, x)
         r_n = _taxpy(-alpha, Ap, r)
         z = prec(r_n)
-        rz_n = _dot(r_n, z)
+        rz_n, rr_n = dots((r_n, z), (r_n, r_n))
         beta = rz_n / torch.where(rz != 0, rz, 1.0)
         p_n = _taxpy(beta, p, z)
-        return _select(active, (x_n, r_n, p_n, rz_n, _dot(r_n, r_n)), st)
+        return _select(active, (x_n, r_n, p_n, rz_n, rr_n), st)
 
     # no isfinite() bailout either: a transient f32 overflow (rr = Inf)
     # keeps iterating through `Inf > bound` and recovers
-    st, k = _chunked(body, (x0, r0, z0, _dot(r0, z0), _dot(r0, r0)),
+    st, k = _chunked(body, (x0, r0, z0, rz0, rr0),
                      lambda st: st[4] > bound, maxiter)
     return st[0], k, torch.sqrt(st[4] / bb)
 
 
-def pbicgstab(apply_fn, b, x0, Minv=None, tol=1e-8, maxiter=500):
+def pbicgstab(apply_fn, b, x0, Minv=None, tol=1e-8, maxiter=500, *,
+              _reduce=None):
     """Preconditioned BiCGStab on trees (right preconditioning).
     ``Minv``: inverse-diagonal tree or callable ``r -> M⁻¹r``.
     Returns ``(x, iters, relres)``; no best-iterate/patience adaptivity
-    (see :func:`pcg`)."""
+    (see :func:`pcg`).  ``_reduce``: as in :func:`pcg`."""
     prec = _make_prec(Minv)
+    dots = _dots(_reduce)
     tiny, tol = _guards(b, tol)
-    bb = torch.clamp_min(_tdot(b, b), tiny)
+    r0 = _tsub(b, apply_fn(x0))
+    bb, rr0 = dots((b, b), (r0, r0))
+    bb = torch.clamp_min(bb, tiny)
     bound = (tol * tol) * bb
 
-    r0 = _tsub(b, apply_fn(x0))
     zeros = _tree_map(torch.zeros_like, b)
     one = torch.ones((), dtype=_dtype_of(b), device=_leaves(b)[0].device)
     # ρ-breakdown threshold scales with the rounding noise of the dtype
@@ -231,13 +249,12 @@ def pbicgstab(apply_fn, b, x0, Minv=None, tol=1e-8, maxiter=500):
 
     def body(st, active):
         x, r, rhat, p, v, rho, alpha, omega, rr = st
-        rho_n = _tdot(rhat, r)
+        rho_n, rhat2 = dots((rhat, r), (rhat, rhat))
         # ρ-breakdown (serendipitous ⟂ of r and the shadow residual):
         # restart with rhat := r, the standard remedy; without it the 1/ρ
         # guard amplifies garbage until the iterate NaNs
         brk = rho_n.abs() < brk_tol * torch.sqrt(
-            torch.clamp_min(_tdot(rhat, rhat), tiny)
-            * torch.clamp_min(rr, tiny))
+            torch.clamp_min(rhat2, tiny) * torch.clamp_min(rr, tiny))
         rhat_n = _select(brk, r, rhat)
         rho_n = torch.where(brk, rr, rho_n)
         # β = 0 on restart makes the direction p := r below
@@ -247,18 +264,21 @@ def pbicgstab(apply_fn, b, x0, Minv=None, tol=1e-8, maxiter=500):
                         r, p, v)
         phat = prec(p_n)
         v_n = apply_fn(phat)
-        alpha_n = rho_n / safe(_tdot(rhat_n, v_n))
+        rv, = dots((rhat_n, v_n))
+        alpha_n = rho_n / safe(rv)
         s = _taxpy(-alpha_n, v_n, r)
         shat = prec(s)
         t = apply_fn(shat)
-        omega_n = _tdot(t, s) / safe(_tdot(t, t))
+        ts, tt = dots((t, s), (t, t))
+        omega_n = ts / safe(tt)
         x_n = _tree_map(lambda xx, ph, sh: xx + alpha_n * ph + omega_n * sh,
                         x, phat, shat)
         r_n = _taxpy(-omega_n, t, s)
+        rr_n, = dots((r_n, r_n))
         return _select(active, (x_n, r_n, rhat_n, p_n, v_n, rho_n, alpha_n,
-                                omega_n, _tdot(r_n, r_n)), st)
+                                omega_n, rr_n), st)
 
-    init = (x0, r0, r0, zeros, zeros, one, one, one, _tdot(r0, r0))
+    init = (x0, r0, r0, zeros, zeros, one, one, one, rr0)
     st, k = _chunked(body, init, lambda st: st[8] > bound, maxiter)
     return st[0], k, torch.sqrt(st[8] / bb)
 
@@ -290,14 +310,26 @@ def row_norm_equilibrator(apply_fn, template, probes=8):
 # restarted GMRES (host-side Hessenberg)
 # ---------------------------------------------------------------------------
 
-def _arnoldi_cycle(Af, Mz, x, rhs, m, thresh, np_dt):
+def _norm(reduce):
+    """The 2-norm of a flat vector: ``torch.linalg.norm`` on the whole
+    grid, the root of the summed dot under a private ``_reduce``."""
+    if reduce is None:
+        return torch.linalg.norm
+    return lambda v: torch.sqrt(reduce(torch.dot(v, v)))
+
+
+def _arnoldi_cycle(Af, Mz, x, rhs, m, thresh, np_dt, reduce=None):
     """One restart cycle of GMRES(m) from ``x``, with the early exit on the
     running Givens residual ``|g[j]|``.  ``Af`` maps a flat vector to the
     flat image the basis is built from; ``Mz`` (flexible GMRES) maps a basis
-    vector to the direction stored in Z, or is None.  Returns
-    (x_new, |g[j_f]|, j_f)."""
+    vector to the direction stored in Z, or is None.  ``reduce``: the
+    solvers' ``_reduce``; each Gram-Schmidt dot is then one reduction.
+    Returns (x_new, |g[j_f]|, j_f)."""
+    dot = torch.dot if reduce is None else (
+        lambda a, b: reduce(torch.dot(a, b)))
+    norm = _norm(reduce)
     r = rhs - Af(x)
-    beta = torch.linalg.norm(r)
+    beta = norm(r)
     n = r.numel()
     V = torch.empty((m + 1, n), dtype=r.dtype, device=r.device)
     V[0] = r / torch.where(beta == 0, 1.0, beta)
@@ -318,10 +350,10 @@ def _arnoldi_cycle(Af, Mz, x, rhs, m, thresh, np_dt):
         # modified Gram-Schmidt over the vectors built so far
         hs = []
         for i in range(j + 1):
-            hij = torch.dot(V[i], w)
+            hij = dot(V[i], w)
             w = w - hij * V[i]
             hs.append(hij)
-        hnext_d = torch.linalg.norm(w)
+        hnext_d = norm(w)
         V[j + 1] = w / torch.where(hnext_d == 0, 1.0, hnext_d)
         col = host_read(torch.stack(hs + [hnext_d]))
         h = np.zeros(m + 1, np_dt)
@@ -363,28 +395,38 @@ def _arnoldi_cycle(Af, Mz, x, rhs, m, thresh, np_dt):
     return x_new, np.abs(g[j]), j
 
 
-def _gmres(Af, Mz, rhs, x0, b_tree, tol, maxiter, restart):
+def _gmres(Af, Mz, rhs, x0, b_tree, tol, maxiter, restart, reduce=None):
     np_dt = _np_dtype(rhs.dtype)
-    m = int(min(restart, rhs.numel()))
+    # the restart depth is the global size's bound (the same on every rank)
+    m = int(restart if reduce is not None else min(restart, rhs.numel()))
     tiny, tol = _guards(b_tree, tol)
-    bb_d = torch.clamp_min(torch.dot(rhs, rhs), tiny)
-    bb, rnorm = host_read(torch.stack(
-        [bb_d, torch.linalg.norm(rhs - Af(x0))]))
+    r0 = rhs - Af(x0)
+    if reduce is None:
+        pair = [torch.clamp_min(torch.dot(rhs, rhs), tiny),
+                torch.linalg.norm(r0)]
+    else:
+        bb_d, rr_d = reduce(torch.stack([torch.dot(rhs, rhs),
+                                         torch.dot(r0, r0)]))
+        pair = [torch.clamp_min(bb_d, tiny), torch.sqrt(rr_d)]
+    bb, rnorm = host_read(torch.stack(pair))
     thresh = np_dt.type(float(tol) * float(tol)) * bb
     x, k = x0, 0
     while rnorm * rnorm > thresh and k < maxiter:
-        x, rnorm, j_f = _arnoldi_cycle(Af, Mz, x, rhs, m, thresh, np_dt)
+        x, rnorm, j_f = _arnoldi_cycle(Af, Mz, x, rhs, m, thresh, np_dt,
+                                       reduce)
         k += j_f
     return x, k, rnorm / np.sqrt(bb)
 
 
-def pgmres(apply_fn, b, x0, Minv=None, tol=1e-8, maxiter=500, restart=40):
+def pgmres(apply_fn, b, x0, Minv=None, tol=1e-8, maxiter=500, restart=40, *,
+           _reduce=None):
     """Left-preconditioned restarted GMRES(m) on trees with telemetry.
 
     ``Minv`` (inverse-diagonal tree or callable) is applied on the LEFT:
     row equilibration, which the badly row-scaled cut-cell saddle/jump
     systems need.  Returns ``(x, iters, relres)``; ``relres`` is in the
-    preconditioned residual norm."""
+    preconditioned residual norm.  ``_reduce``: as in :func:`pcg`;
+    Gram-Schmidt stays modified, one summed dot per Hessenberg entry."""
     prec = _make_prec(Minv)
     pb, unravel = _ravel(prec(b))
     x0_flat = _ravel(x0)[0]
@@ -392,17 +434,20 @@ def pgmres(apply_fn, b, x0, Minv=None, tol=1e-8, maxiter=500, restart=40):
     def Af(v):
         return _ravel(prec(apply_fn(unravel(v))))[0]
 
-    x, k, relres = _gmres(Af, None, pb, x0_flat, b, tol, maxiter, restart)
+    x, k, relres = _gmres(Af, None, pb, x0_flat, b, tol, maxiter, restart,
+                          _reduce)
     return unravel(x), k, relres
 
 
-def fgmres(apply_fn, b, x0, Minv=None, tol=1e-8, maxiter=500, restart=40):
+def fgmres(apply_fn, b, x0, Minv=None, tol=1e-8, maxiter=500, restart=40, *,
+           _reduce=None):
     """Flexible restarted GMRES (right preconditioning, Saad 1993).
 
     The preconditioner may be a NONLINEAR operator (an inner Krylov solve):
     each Arnoldi vector's preconditioned image ``z_j = M(v_j)`` is stored
     and the update is ``x += Z y``.  ``relres`` is in the TRUE
-    (unpreconditioned) residual norm.  Returns ``(x, iters, relres)``."""
+    (unpreconditioned) residual norm.  Returns ``(x, iters, relres)``.
+    ``_reduce``: as in :func:`pgmres`."""
     prec = _make_prec(Minv)
     b_flat, unravel = _ravel(b)
     x0_flat = _ravel(x0)[0]
@@ -413,7 +458,8 @@ def fgmres(apply_fn, b, x0, Minv=None, tol=1e-8, maxiter=500, restart=40):
     def Mz(v):
         return _ravel(prec(unravel(v)))[0]
 
-    x, k, relres = _gmres(Af, Mz, b_flat, x0_flat, b, tol, maxiter, restart)
+    x, k, relres = _gmres(Af, Mz, b_flat, x0_flat, b, tol, maxiter, restart,
+                          _reduce)
     return unravel(x), k, relres
 
 

@@ -18,10 +18,11 @@ every partial sum, goes through a host buffer (the host-staged
 transport).
 
 Ledger.  Every message is recorded in ``LEDGER``: its kind, its element
-count, its bytes, and the host-clock seconds of the call that sent it.  A
-rank is one process, so ``LEDGER`` is that rank's own.  It stands in for
-the JAX package's scan of the compiled HLO: a dryrun resets it before the
-sharded step and reads it after.
+count, its bytes, its grid extent (the product of its first two axes: the
+strips of fields stacked on a trailing axis count once) and the host-clock
+seconds of the call that sent it.  A rank is one process, so ``LEDGER`` is
+that rank's own.  It stands in for the JAX package's scan of the compiled
+HLO: a dryrun resets it before the sharded step and reads it after.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ import torch.distributed as dist
 from .._device import resolve_device
 
 __all__ = ["run_world", "RankContext", "halo_exchange", "all_reduce_sum",
-           "LEDGER", "Ledger", "backend_for"]
+           "exchange", "LEDGER", "Ledger", "backend_for"]
 
 
 class Ledger:
@@ -51,12 +52,21 @@ class Ledger:
         self.reset()
 
     def reset(self):
-        self.messages = []     # (kind, elements, bytes)
+        self.messages = []     # (kind, elements, bytes, grid extent)
         self.calls = []        # (kind, seconds)
+        self.seconds = {}      # kind: seconds of its calls so far
 
     def record(self, kind, tensor):
+        extent = (tensor.shape[0] * tensor.shape[1] if tensor.dim() >= 2
+                  else tensor.numel())
         self.messages.append((kind, tensor.numel(),
-                              tensor.numel() * tensor.element_size()))
+                              tensor.numel() * tensor.element_size(),
+                              extent))
+
+    def call(self, kind, seconds):
+        """One call that sent ``kind``'s messages took ``seconds``."""
+        self.calls.append((kind, seconds))
+        self.seconds[kind] = self.seconds.get(kind, 0.0) + seconds
 
     def totals(self):
         """{kind: {"calls", "messages", "elements", "bytes", "seconds"}}."""
@@ -66,16 +76,18 @@ class Ledger:
                                             bytes=0, seconds=0.0))
             row["calls"] += 1
             row["seconds"] += seconds
-        for kind, elements, nbytes in self.messages:
+        for kind, elements, nbytes, _ in self.messages:
             row = out[kind]
             row["messages"] += 1
             row["elements"] += elements
             row["bytes"] += nbytes
         return out
 
-    def largest(self):
-        """Element count of the largest message (0 if none)."""
-        return max((m[1] for m in self.messages), default=0)
+    def largest(self, exclude=()):
+        """Grid extent of the largest message (0 if none), leaving out the
+        kinds in ``exclude``."""
+        return max((m[3] for m in self.messages if m[0] not in exclude),
+                   default=0)
 
 
 LEDGER = Ledger()
@@ -158,26 +170,55 @@ def halo_exchange(block, grid, width):
     out = block
     for axis in (0, 1):
         out = _exchange_axis(out, grid, axis, width)
-    LEDGER.calls.append(("halo", time.perf_counter() - t0))
+    LEDGER.call("halo", time.perf_counter() - t0)
     return out
 
 
-def all_reduce_sum(t):
+def all_reduce_sum(t, kind="all_reduce"):
     """The sum of ``t`` over the ranks, as a new tensor on ``t``'s device
-    (through a host buffer under gloo)."""
+    (through a host buffer under gloo), recorded under ``kind``."""
     _sync_if_staged(t)
     t0 = time.perf_counter()
     buf = t.detach().to("cpu" if _host_staged(t) else t.device, copy=True)
     dist.all_reduce(buf)
-    LEDGER.record("all_reduce", buf)
+    LEDGER.record(kind, buf)
     out = buf.to(t.device)
-    LEDGER.calls.append(("all_reduce", time.perf_counter() - t0))
+    LEDGER.call(kind, time.perf_counter() - t0)
+    return out
+
+
+def exchange(sends, shape, dtype, device, kind):
+    """Point-to-point messages: ``sends`` maps a peer rank to the tensor it
+    gets from this one, and each of those peers sends one tensor of
+    ``shape`` back.  Returns {peer: received tensor on ``device``}, in one
+    ``batch_isend_irecv`` recorded under ``kind`` (host-staged under gloo,
+    as the halo strips are)."""
+    t0 = time.perf_counter()
+    staged = device.type == "cuda" and dist.get_backend() == "gloo"
+    if staged:
+        torch.cuda.synchronize(device)
+    ops, received = [], {}
+    for peer, t in sends.items():
+        t = t.contiguous()
+        if staged:
+            t = t.cpu()
+        buf = torch.empty(shape, dtype=dtype, device=t.device)
+        ops += [dist.P2POp(dist.isend, t, peer),
+                dist.P2POp(dist.irecv, buf, peer)]
+        received[peer] = buf
+        LEDGER.record(kind, t)
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    out = {peer: buf.to(device) for peer, buf in received.items()}
+    LEDGER.call(kind, time.perf_counter() - t0)
     return out
 
 
 def _rank_main(fn, rank, n_ranks, device, backend, init, timeout_s, args,
-               results):
-    """One rank: join the group, run ``fn``, report to the parent."""
+               results, later):
+    """One rank: join the group, take the rest of its arguments from
+    ``later`` (if not None), run ``fn``, report to the parent."""
     try:
         device = torch.device(device)
         if device.type == "cuda":
@@ -189,6 +230,8 @@ def _rank_main(fn, rank, n_ranks, device, backend, init, timeout_s, args,
         dist.init_process_group(
             backend, init_method=init, rank=rank, world_size=n_ranks,
             timeout=datetime.timedelta(seconds=timeout_s))
+        if later is not None:
+            args = args + later.get(timeout=timeout_s)
         out = fn(RankContext(rank, n_ranks, device), *args)
         msg = (rank, None, out if rank == 0 else None)
     except Exception:  # reported to the parent, which raises it
@@ -198,9 +241,13 @@ def _rank_main(fn, rank, n_ranks, device, backend, init, timeout_s, args,
         dist.destroy_process_group()
 
 
-def run_world(fn, n_ranks, device, *args, timeout_s=120):
+def run_world(fn, n_ranks, device, *args, timeout_s=120, later=None):
     """Run ``fn(RankContext, *args)`` on ``n_ranks`` ranks, each a process,
     and return rank 0's result.
+
+    ``later``: a callable run here once the ranks are started; the tuple it
+    returns is appended to ``args``.  The ranks start, import and join the
+    group meanwhile, and wait for it before ``fn`` runs.
 
     ``fn`` and ``args`` go to ``spawn`` children, so ``fn`` must be
     importable from the package, and what it returns must pickle (numpy,
@@ -218,13 +265,18 @@ def run_world(fn, n_ranks, device, *args, timeout_s=120):
     with tempfile.TemporaryDirectory(prefix="penguin-world-") as tmp:
         init = "file://" + os.path.join(tmp, "store")
         results = ctx.Queue()
+        rest = None if later is None else ctx.Queue()
         procs = [ctx.Process(target=_rank_main, daemon=True,
                              args=(fn, rank, n_ranks, str(device), backend,
-                                   init, timeout_s, args, results))
+                                   init, timeout_s, args, results, rest))
                  for rank in range(n_ranks)]
         for p in procs:
             p.start()
         try:
+            if later is not None:
+                extra = later()
+                for _ in procs:
+                    rest.put(extra)
             out = _collect(results, procs, deadline)
             for p in procs:     # reported; only the group's teardown is left
                 p.join(timeout=30)
@@ -233,6 +285,9 @@ def run_world(fn, n_ranks, device, *args, timeout_s=120):
                 if p.is_alive():
                     p.kill()
                     p.join(timeout=10)
+            if rest is not None:
+                # what a killed rank left unread must not hold this process
+                rest.cancel_join_thread()
     return out
 
 

@@ -54,6 +54,10 @@ class NavierStokesMono(StokesMono):
     """Steady and unsteady incompressible Navier-Stokes (the Stokes blocks
     plus convection).  The tensors follow the fluid's capacities."""
 
+    # the unsteady steppers' Krylov ``_reduce`` (``linsolve``): None on the
+    # whole grid; ``parallel.sharding``'s rank solver sums over the ranks
+    _krylov_reduce = None
+
     def __init__(self, fluid, bc_u, pressure_gauge=None, bc_cut=None,
                  wall_row="center", cut_row="center", cut_flux="auto"):
         super().__init__(fluid, bc_u, pressure_gauge, bc_cut,
@@ -215,13 +219,15 @@ class NavierStokesMono(StokesMono):
 
             def lin_solve(b, xc):
                 return pbicgstab(apply_fn, b, xc, Minv=M, tol=tol,
-                                 maxiter=maxiter or 400)
+                                 maxiter=maxiter or 400,
+                                 _reduce=self._krylov_reduce)
         elif method == "pgmres":
             M = self.make_block_preconditioner(dt=dt, theta=theta)
 
             def lin_solve(b, xc):
                 return pgmres(apply_fn, b, xc, Minv=M, tol=tol,
-                              maxiter=maxiter or 400, restart=60)
+                              maxiter=maxiter or 400, restart=60,
+                              _reduce=self._krylov_reduce)
         elif method == "fgmres":
             # no spectral bounds in the Schur solve: survives geometries
             # where the Chebyshev bound estimate mistunes
@@ -231,7 +237,8 @@ class NavierStokesMono(StokesMono):
 
             def lin_solve(b, xc):
                 return fgmres(apply_fn, b, xc, Minv=M, tol=tol,
-                              maxiter=maxiter or 400, restart=40)
+                              maxiter=maxiter or 400, restart=40,
+                              _reduce=self._krylov_reduce)
         else:
             def lin_solve(b, xc):
                 return gmres(apply_fn, b, x0=xc, tol=tol,
@@ -300,7 +307,8 @@ class NavierStokesMono(StokesMono):
                 for _ in range(picard_iters):
                     x_it, its, rel = fgmres(
                         self._picard_rows(x_it, dt, theta), b, x_it, Minv=M,
-                        tol=tol, maxiter=maxiter, restart=40)
+                        tol=tol, maxiter=maxiter, restart=40,
+                        _reduce=self._krylov_reduce)
                 x = x_it
                 iters.append(its)
                 rels.append(rel)

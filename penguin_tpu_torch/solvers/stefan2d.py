@@ -228,12 +228,23 @@ def _jacobian_fn(jac, mesh, sign, scale, fuse, jac_p, jac_s, band_budget):
         d, mk_a, normals, mesh, sign, scale, fuse, jac_p, jac_s, band_budget)
 
 
+def _normal_equations(J, Fv):
+    """(JᵀJ, JᵀF, ‖F‖) of the GN step."""
+    return J.T @ J, J.T @ Fv, torch.linalg.norm(Fv)
+
+
 def _lm_step(J, Fv, d, lam, alpha, smooth_window, smooth_passes, max_disp):
     """One damped normal-equations update of the displacements."""
-    JTJ = J.T @ J
+    return _lm_normal_step(J.T @ J, J.T @ Fv, d, lam, alpha, smooth_window,
+                           smooth_passes, max_disp)
+
+
+def _lm_normal_step(JTJ, JTF, d, lam, alpha, smooth_window, smooth_passes,
+                    max_disp):
+    """:func:`_lm_step` from the normal equations ``JᵀJ``, ``JᵀF``."""
     diag = torch.diagonal(JTJ)
     diag = torch.maximum(diag, 1e-10 * torch.max(diag))
-    delta = torch.linalg.solve_ex(JTJ + lam * torch.diag(diag), J.T @ Fv)[0]
+    delta = torch.linalg.solve_ex(JTJ + lam * torch.diag(diag), JTF)[0]
     # a non-finite LM step (singular J, diverged inner solve) must not
     # poison the markers: skip it, let λ adaptation and the next residual
     # recover
@@ -244,11 +255,12 @@ def _lm_step(J, Fv, d, lam, alpha, smooth_window, smooth_passes, max_disp):
 
 
 def _gauss_newton(residual, jac_fn, mk_a, d0, newton_params, lm, smooth,
-                  max_disp, capture):
+                  max_disp, capture, normal=_normal_equations):
     """The GN/LM iteration of one step.  ``residual(mk_b) -> (F, state,
-    Krylov iterations)``.  Returns (d, state, last F or None, NaN-padded
-    residual history, final residual norm, iterations, Krylov
-    iterations)."""
+    Krylov iterations)``; ``normal(J, F) -> (JᵀJ, JᵀF, ‖F‖)``
+    (``parallel.sharding`` sums a rank's over the ranks).  Returns (d,
+    state, last F or None, NaN-padded residual history, final residual
+    norm, iterations, Krylov iterations)."""
     max_iter, tol, _, alpha = newton_params
     max_iter = int(max_iter)
     lm_init, lm_factor, lm_min, lm_max = lm
@@ -263,9 +275,8 @@ def _gauss_newton(residual, jac_fn, mk_a, d0, newton_params, lm, smooth,
         # solution stays a deterministic function of d (see the JAX version)
         F, T, klv_it = residual(mk_a + d[:, None] * normals)
         Fv = F.reshape(-1)
-        J = jac_fn(d, mk_a, normals)
-        d_new = _lm_step(J, Fv, d, lam, alpha, *smooth, max_disp)
-        rn_new = torch.linalg.norm(Fv)
+        JTJ, JTF, rn_new = normal(jac_fn(d, mk_a, normals), Fv)
+        d_new = _lm_normal_step(JTJ, JTF, d, lam, alpha, *smooth, max_disp)
         if it > 0:
             lam = torch.where(rn_new < rn,
                               torch.clamp_min(lam / lm_factor, lm_min),

@@ -118,6 +118,61 @@ def _along(M, x, axis):
     return torch.movedim(torch.movedim(x, axis, -1) @ M.T, -1, axis)
 
 
+def _dct2_matrix(n, **like):
+    """The orthonormal DCT-II as a matrix: ``C[k, j] = s_k cos(π (j+½) k /
+    n)``; its inverse is ``Cᵀ``."""
+    jj = np.arange(n)
+    kk = np.arange(n)[:, None]
+    C = np.cos(np.pi * (jj[None, :] + 0.5) * kk / n) * np.sqrt(2.0 / n)
+    C[0] *= np.sqrt(0.5)
+    return torch.as_tensor(C, **like)
+
+
+class _WholeGrid:
+    """The global operations of :meth:`StokesMono.make_block_preconditioner`
+    on one array holding the whole grid: no halo, plain sums, the DCT as
+    matmuls.  ``parallel.sharding`` passes a rank's counterpart as the
+    private ``_rank``: there the fields are the rank's window, ``grow``
+    brings a block's halo, ``fresh`` renews it before a stencil, sums run
+    over the block and the ranks, and the DCT is reduce-scattered along the
+    rank grid."""
+
+    # reach-1 stencil sweeps a renewed halo affords before the next one
+    depth = math.inf
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+
+    def grow(self, x):
+        return x
+
+    crop = fresh = grow
+
+    def sum(self, *ts):
+        return tuple(torch.sum(t) for t in ts)
+
+    def dot_norm(self, a, w):
+        return _vdot(a, w), torch.linalg.vector_norm(w)
+
+    def index(self, d, **like):
+        """Global index of each slot of the fields along axis d."""
+        return torch.arange(self.shape[d], **like)
+
+    def core_index(self, d, n, **like):
+        """Global index of each of the DCT's first ``n`` slots along axis d
+        that these fields hold."""
+        return torch.arange(n, **like)
+
+    def core(self, ncell):
+        return tuple(slice(0, nc) for nc in ncell)
+
+    def pad_core(self, sc, shape):
+        return _pad_core(sc, shape)
+
+    def along(self, M, x, axis):
+        return _along(M, x, axis)
+
+
 class VelocityBorder:
     """Border surgery for one velocity component (applied to both uω and uγ
     rows).  ``comp``: which velocity component this mesh carries.
@@ -953,7 +1008,7 @@ class StokesMono:
     def make_block_preconditioner(self, dt=None, theta=1.0, cheb_iters=20,
                                   lmin=None, lmax=None, conv_diag=None,
                                   schur="cheb", schur_cg_iters=25,
-                                  mom="jacobi", mom_cg_iters=8):
+                                  mom="jacobi", mom_cg_iters=8, _rank=None):
         """Returns ``M(r) -> z`` approximating the inverse of the (unsteady
         if ``dt`` given) Stokes operator.  ``conv_diag``: extra per-component
         momentum diagonal (Picard convection).
@@ -972,9 +1027,18 @@ class StokesMono:
         ``lmin``/``lmax`` bound the spectrum of the Jacobi-scaled pressure
         Schur complement for the Chebyshev; ``None`` estimates them by
         power iteration, and the Chebyshev depth then follows their ratio
-        (one read on the host per build)."""
+        (one read on the host per build).
+
+        ``_rank`` (private, ``parallel.sharding``): the M of one rank of a
+        decomposed solve, built on a windowed view; it takes and returns the
+        rank's blocks (see :class:`_WholeGrid`).  Only ``mom="jacobi"``."""
         N = self.N
         like = self._like
+        rk = _WholeGrid(self.fluid.capacity_p.V.shape) if _rank is None \
+            else _rank
+        if _rank is not None and mom != "jacobi":
+            raise ValueError("a rank's block preconditioner takes "
+                             "mom='jacobi' only")
         diag_mom, dinv = [], []
         for d in range(N):
             ops = self.fluid.operator_u[d]
@@ -989,7 +1053,7 @@ class StokesMono:
             if self._ghost[d] is not None:
                 # ghost cut rows are unit-diagonal interpolation rows
                 dm_ = torch.where(self._ghost[d]["gmask"], 1.0, dm_)
-            dm_ = torch.where(dm_ == 0.0, 1.0, dm_)
+            dm_ = rk.fresh(torch.where(dm_ == 0.0, 1.0, dm_))
             diag_mom.append(dm_)
             dinv.append(1.0 / dm_)
 
@@ -999,10 +1063,12 @@ class StokesMono:
         for d in range(N):
             dLp = dLp + coeff[d] + _shift_p(coeff[d], d)
         dLp = torch.where(self.p_active, dLp, 1.0)
-        dLp = torch.where(dLp == 0.0, 1.0, dLp)
+        dLp = rk.fresh(torch.where(dLp == 0.0, 1.0, dLp))
         dLp_inv = 1.0 / dLp
 
-        def Lp(p):
+        def Lp_here(p):
+            # Lp on the fields as they are: on a rank's window, exact on
+            # the cells ``depth`` sweeps away from a renewed halo
             pa = torch.where(self.p_active, p, 0.0)
             out = 0.0
             for d in range(N):
@@ -1010,14 +1076,20 @@ class StokesMono:
                 out = out + dm_t(coeff[d] * dm(pa, d, per), d, per)
             return torch.where(self.p_active, out, p)
 
+        def Lp(p):
+            return Lp_here(rk.fresh(p))
+
         mask = self.p_active
         m_act = mask.to(like["dtype"])
-        nact = torch.clamp_min(torch.sum(m_act), 1.0)
+        nact = torch.clamp_min(rk.sum(m_act)[0], 1.0)
 
-        def _deflate(p):
+        def _mean(p):
+            return rk.sum(torch.where(mask, p, 0.0))[0] / nact
+
+        def _deflate(p, mean=None):
             # remove the gauge constant mode over the active set (Lp's
             # null space)
-            mean = torch.sum(torch.where(mask, p, 0.0)) / nact
+            mean = _mean(p) if mean is None else mean
             return torch.where(mask, p - mean, 0.0)
 
         if lmin is None or lmax is None:
@@ -1027,21 +1099,20 @@ class StokesMono:
             for d in range(N):
                 shp = [1] * mask.ndim
                 shp[d] = mask.shape[d]
-                mod = mod + torch.arange(mask.shape[d], **like).reshape(shp) \
-                    * (d + 1.3)
+                mod = mod + rk.index(d, **like).reshape(shp) * (d + 1.3)
             v = _deflate(torch.where(mask, 1.0 + torch.sin(mod), 0.0))
 
             def scaled(p):
                 return torch.where(mask, dLp_inv * Lp(p), 0.0)
 
             def _power(op, v0, iters=16):
-                vk = v0 / torch.clamp_min(torch.linalg.vector_norm(v0), 1e-300)
+                vk = v0 / torch.clamp_min(rk.dot_norm(v0, v0)[1], 1e-300)
                 lam = None
                 for _ in range(iters):
                     w = _deflate(op(vk))
-                    lam = _vdot(vk, w)
-                    vk = w / torch.clamp_min(torch.linalg.vector_norm(w),
-                                             1e-300)
+                    # two independent sums: one reduction on a rank
+                    lam, nw = rk.dot_norm(vk, w)
+                    vk = w / torch.clamp_min(nw, 1e-300)
                 return lam
 
             lmax_e = _power(scaled, v)
@@ -1081,39 +1152,33 @@ class StokesMono:
             # Laplacian that Lp is away from the cut region and borders, so
             # the inner count is O(1) in mesh size.  The DCT is a matmul
             # with C[k,j] = s_k cos(pi (j+1/2) k / n) (ortho), inverse Cᵀ
-            ncell = tuple(s_ - 1 for s_ in mask.shape)  # strip padding slot
-            lam = torch.zeros(ncell, **like)
+            # the whole grid's slots less its last (padding) slot per axis
+            ncell = tuple(s_ - 1 for s_ in rk.shape)
+            ks = [rk.core_index(d, ncell[d], **like) for d in range(N)]
+            wbars = rk.sum(*(coeff[d] * m_act for d in range(N)))
+            lam = torch.zeros(tuple(len(k) for k in ks), **like)
+            origin = torch.ones(lam.shape, dtype=torch.bool,
+                                device=like["device"])
             for d in range(N):
-                wbar = torch.sum(coeff[d] * m_act) / nact
-                k = torch.arange(ncell[d], **like)
+                wbar = wbars[d] / nact
                 shp = [1] * N
-                shp[d] = ncell[d]
+                shp[d] = len(ks[d])
                 lam = lam + wbar * 2.0 * (
-                    1.0 - torch.cos(math.pi * k / ncell[d])).reshape(shp)
+                    1.0 - torch.cos(math.pi * ks[d] / ncell[d])).reshape(shp)
+                origin = origin & (ks[d] == 0).reshape(shp)
             lam = torch.where(lam <= 0.0, 1.0, lam)  # zero mode: deflated
-            core = tuple(slice(0, nc) for nc in ncell)
-            origin = torch.zeros(ncell, dtype=torch.bool,
-                                 device=like["device"])
-            origin[(0,) * N] = True
-            Cmats = []
-            for d in range(N):
-                nd_ = ncell[d]
-                jj = np.arange(nd_)
-                kk = np.arange(nd_)[:, None]
-                Cd = (np.cos(np.pi * (jj[None, :] + 0.5) * kk / nd_)
-                      * np.sqrt(2.0 / nd_))
-                Cd[0] *= np.sqrt(0.5)
-                Cmats.append(torch.as_tensor(Cd, **like))
+            core = rk.core(ncell)
+            Cmats = [_dct2_matrix(ncell[d], **like) for d in range(N)]
 
             def dct_inv(s):
                 sc = s[core]
                 for d in range(N):
-                    sc = _along(Cmats[d], sc, d)          # DCT-II
+                    sc = rk.along(Cmats[d], sc, d)        # DCT-II
                 sc = sc / lam
                 sc = torch.where(origin, 0.0, sc)
                 for d in range(N):
-                    sc = _along(Cmats[d].T, sc, d)        # DCT-III (inverse)
-                return _deflate(_pad_core(sc, s.shape))
+                    sc = rk.along(Cmats[d].T, sc, d)      # DCT-III (inverse)
+                return _deflate(rk.pad_core(sc, s.shape))
 
             inner_prec = dct_inv
         elif schur == "mass":
@@ -1139,16 +1204,16 @@ class StokesMono:
             x = torch.zeros_like(bp)
             z = inner_prec(r)
             p_ = z
-            rz = _vdot(r, z)
+            rz = rk.sum(r * z)[0]
             for _ in range(schur_cg_iters):
                 Ap_ = _deflate(Lp(p_))
-                pAp = _vdot(p_, Ap_)
+                pAp = rk.sum(p_ * Ap_)[0]
                 alpha = rz / torch.where(pAp <= 0.0, 1.0, pAp)
                 alpha = torch.where(pAp <= 0.0, 0.0, alpha)
                 x = x + alpha * p_
                 r = r - alpha * Ap_
                 z = inner_prec(r)
-                rz_new = _vdot(r, z)
+                rz_new = rk.sum(r * z)[0]
                 beta = rz_new / torch.where(rz == 0.0, 1.0, rz)
                 beta = torch.where(rz == 0.0, 0.0, beta)
                 rz = rz_new
@@ -1162,9 +1227,13 @@ class StokesMono:
             r = dLp_inv * bp
             dvec = r / th_c
             rho = 1.0 / sigma
-            for _ in range(cheb_iters):
+            for k in range(cheb_iters):
+                if k % rk.depth == 0:
+                    # no reduction in the sweep: on a rank, one renewed halo
+                    # of (r, dvec) carries ``depth`` sweeps
+                    r, dvec = rk.fresh((r, dvec))
                 x = x + dvec
-                r = r - dLp_inv * Lp(dvec)
+                r = r - dLp_inv * Lp_here(dvec)
                 rho_new = 1.0 / (2.0 * sigma - rho)
                 dvec = rho_new * rho * dvec + (2.0 * rho_new / delta) * r
                 rho = rho_new
@@ -1187,6 +1256,7 @@ class StokesMono:
                       if isinstance(lmax, torch.Tensor) else max(lmax, 1e-30))
 
         def M(r):
+            r = rk.grow(r)
             rws = r[0:2 * N:2]
             rgs = r[1:2 * N:2]
             rp = r[2 * N]
@@ -1201,21 +1271,23 @@ class StokesMono:
             # Lp's constant null mode goes through a bounded identity, not
             # the Chebyshev (which would amplify it); the pin/gauge rows
             # own the level anyway
-            mean_s = torch.sum(torch.where(mask, s, 0.0)) / nact
-            zp = -(solve_s(_deflate(s)) + (mean_s / lmax_floor) * m_act)
+            mean_s = _mean(s)
+            zp = -(solve_s(_deflate(s, mean_s))
+                   + (mean_s / lmax_floor) * m_act)
             zp = torch.where(self.p_active, zp, rp)
             if self.pin_mask is not None:
                 zp = torch.where(self.pin_mask, rp, zp)
             if self.outflow_p_mask is not None:
                 zp = torch.where(self.outflow_p_mask, rp, zp)
             out = []
+            zp_h = rk.fresh(zp)
             for d in range(N):
-                zw = y[d] - mom_solve(d, self._grad(d, zp))
+                zw = y[d] - mom_solve(d, self._grad(d, zp_h))
                 zw = torch.where(self.u_active[d], zw, rws[d])
                 for item in self.borders[d].items:
                     zw = torch.where(item[5], rws[d], zw)
                 out += [zw, zg[d]]
-            return tuple(out) + (zp,)
+            return rk.crop(tuple(out) + (zp,))
 
         M.mom_solve = mom_solve  # diagnostics / tests
         M.schur_solve = solve_s

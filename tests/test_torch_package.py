@@ -72,12 +72,6 @@ def test_unported_paths_raise():
         assert "NotImplementedError" not in path.read_text(), path
 
 
-# the JAX dryruns whose port is ROADMAP Queue 1 item 15b: the one gap
-# allowed in ``parallel.sharding``'s names, until that item deletes it
-QUEUED_DRYRUNS = {"dryrun_ns_multichip", "dryrun_ns_picard_multichip",
-                  "dryrun_stefan_multichip"}
-
-
 def test_public_names_follow_the_jax_package():
     """Every public name of the JAX package's modules that the port has
     taken over is a public name of the port's module too."""
@@ -92,12 +86,9 @@ def test_public_names_follow_the_jax_package():
                 "diagnostics", "vtk", "viz", "parallel", "parallel.sharding"):
         j = importlib.import_module("penguin_tpu." + mod)
         t = importlib.import_module("penguin_tpu_torch." + mod)
-        queued = QUEUED_DRYRUNS if mod == "parallel.sharding" else set()
-        missing = [n for n in j.__all__ if not hasattr(t, n)
-                   and n not in queued]
+        missing = [n for n in j.__all__ if not hasattr(t, n)]
         assert not missing, (mod, missing)
-        assert set(j.__all__) - queued <= set(t.__all__), mod
-        assert not queued & set(t.__all__), mod
+        assert set(j.__all__) <= set(t.__all__), mod
     import penguin_tpu
     assert set(penguin_tpu.__all__) <= set(tpt.__all__)
     from penguin_tpu_torch import solvers
@@ -206,6 +197,12 @@ def _entry_points():
             lambda: sharding.dryrun_stokes_multichip(2, grid=(8, 8))[0],
         "dryrun_moving_multichip":
             lambda: sharding.dryrun_moving_multichip(2, grid=(8, 8))[0],
+        "dryrun_ns_multichip":
+            lambda: sharding.dryrun_ns_multichip(2, grid=(8, 4))[0],
+        "dryrun_ns_picard_multichip":
+            lambda: sharding.dryrun_ns_picard_multichip(2, grid=(8, 4))[0][0],
+        "dryrun_stefan_multichip":
+            lambda: sharding.dryrun_stefan_multichip(2, grid=(8, 8), nm=8)[1],
         "dryrun_multichip": lambda: sharding.dryrun_multichip(2)["heat"],
     }
 

@@ -331,5 +331,5 @@ def test_windowed_view_refuses_ghost_cut_rows():
                         tpt.Dirichlet(0.0), cut_row="ghost")
     assert any(g is not None for g in solver._ghost)
     window = (slice(0, 9), slice(0, 9))
-    with pytest.raises(ValueError, match="15b"):
+    with pytest.raises(ValueError, match="item 17"):
         tsh.windowed_stokes(solver, window)
