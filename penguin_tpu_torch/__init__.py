@@ -18,8 +18,9 @@ with an explicit dtype and device.  It covers:
   stepper ``FastHeatBE``, whose CG matvec runs through the hand-written
   CUDA stencil kernels of ``kernels`` on a CUDA device;
 - the periphery: ``checkpoint`` (an ``.npz`` layout that both packages
-  read), ``diagnostics`` (CUDA-synced timers, ``torch.profiler`` traces,
-  Krylov histories), ``vtk`` and ``viz`` (matplotlib).
+  read), ``diagnostics`` (profiler spans, CUDA-synced timers,
+  ``torch.profiler`` traces, Krylov histories), ``vtk`` and ``viz``
+  (matplotlib).
 
 It never imports JAX.  Entry points that make tensors put them on the CUDA
 device unless they are given a device (``device="cpu"`` for the CPU) or a

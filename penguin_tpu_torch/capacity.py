@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ._device import resolve_device
+from .diagnostics import span
 from .quadrature import box_integrals
 
 __all__ = ["Capacity", "compute_capacity", "compute_capacity_spacetime",
@@ -234,20 +235,22 @@ def compute_capacity(body, mesh, p: int = 8, s: int = 2,
         cut_moments = mesh.ndim >= 2 and not _is_traced(params)
     wrapped = _wrap(body, params)
     nodes = [np.asarray(v) for v in mesh.nodes]
-    if band_budget == "auto":
-        if (mesh.ndim >= 2 and mesh.ncells() >= _BAND_AUTO_MIN_CELLS
-                and not _is_traced(params)):
-            count = estimate_band_budget(wrapped, nodes, mesh.n, dtype,
-                                         band_safety, spacetime=False,
-                                         device=device)
-            band_budget = _round_budget(count, mesh.ncells())
-        else:
-            band_budget = None
-    return _capacity_impl(wrapped, nodes, mesh.n, dtype, device, p, s,
-                          compute_centroids, mesh_ref=mesh,
-                          np_shape=mesh.np_shape, band_budget=band_budget,
-                          band_safety=float(band_safety),
-                          cut_moments=bool(cut_moments))
+    with span("capacity.build"):
+        if band_budget == "auto":
+            if (mesh.ndim >= 2 and mesh.ncells() >= _BAND_AUTO_MIN_CELLS
+                    and not _is_traced(params)):
+                count = estimate_band_budget(wrapped, nodes, mesh.n, dtype,
+                                             band_safety, spacetime=False,
+                                             device=device)
+                band_budget = _round_budget(count, mesh.ncells())
+            else:
+                band_budget = None
+        return _capacity_impl(wrapped, nodes, mesh.n, dtype, device, p, s,
+                              compute_centroids, mesh_ref=mesh,
+                              np_shape=mesh.np_shape,
+                              band_budget=band_budget,
+                              band_safety=float(band_safety),
+                              cut_moments=bool(cut_moments))
 
 
 def _slab_times(t0, t1, dtype, device):
@@ -454,168 +457,181 @@ def _capacity_impl(body, nodes_list, n, dtype, device, p, s,
     vol_inner = N - 2 if (spacetime and N >= 2) else None
 
     # --- volumes + centroids -------------------------------------------------
-    V_cells, moms = box_integrals(body, lo, hi, p=p, s=s,
-                                  inner_axis=vol_inner)
-    full_vol = 1.0
-    for d in range(N):
-        full_vol = full_vol * (hi[d] - lo[d])
-    eps = 1e-10 if dtype.itemsize >= 8 else 2e-5
-    is_empty = V_cells <= eps * full_vol
-    is_full = V_cells >= (1.0 - eps) * full_vol
-    is_cut = (~is_empty) & (~is_full)
-    V_cells = torch.where(is_empty, 0.0,
-                          torch.where(is_full, full_vol.expand(n), V_cells))
+    with span("capacity.volumes"):
+        V_cells, moms = box_integrals(body, lo, hi, p=p, s=s,
+                                      inner_axis=vol_inner)
+        full_vol = 1.0
+        for d in range(N):
+            full_vol = full_vol * (hi[d] - lo[d])
+        eps = 1e-10 if dtype.itemsize >= 8 else 2e-5
+        is_empty = V_cells <= eps * full_vol
+        is_full = V_cells >= (1.0 - eps) * full_vol
+        is_cut = (~is_empty) & (~is_full)
+        V_cells = torch.where(
+            is_empty, 0.0, torch.where(is_full, full_vol.expand(n), V_cells))
 
-    box_center = [(0.5 * (lo[d] + hi[d])).expand(n) for d in range(N)]
-    Vsafe = torch.clamp_min(V_cells, 1e-300)
-    C_cells = [torch.where(is_cut, moms[d] / Vsafe, box_center[d])
-               for d in range(N)]
+        box_center = [(0.5 * (lo[d] + hi[d])).expand(n) for d in range(N)]
+        Vsafe = torch.clamp_min(V_cells, 1e-300)
+        C_cells = [torch.where(is_cut, moms[d] / Vsafe, box_center[d])
+                   for d in range(N)]
 
     # --- face capacities A[d] (and wet-face centroids Am[d]) -----------------
-    # an interior face with fluid on only one side is fluid boundary, not a
-    # flux face: the smoothstep gate closes it (see penguin_tpu.capacity).
-    # Space-time slabs carry moments on the SPATIAL axes only: the time
-    # faces have e_a·n = 0 for every spatial a, so they drop out of the
-    # half-box divergence identity behind gamma_half_moments.
-    n_mom = (N - 1) if spacetime else N
-    do_moms = cut_moments and n_mom >= 2
-    # relative measure floor for centroid validity (f32 quadrature noise on
-    # near-empty faces is ~1e-7 of the measure scale)
-    eps_rel = 1e-12 if dtype.itemsize >= 8 else 1e-5
-    tiny = torch.finfo(dtype).tiny
-    A, Am = [], []
-    for d in range(N):
-        shp = [1] * N
-        shp[d] = n[d] + 1
-        fco = nodes[d].reshape(shp)
-        fshape = tuple(n[i] + 1 if i == d else n[i] for i in range(N))
-        if N == 1:
-            Ad = (body(fco) <= 0.0).to(dtype)
-        else:
-            cross_lo = [lo[i] for i in range(N) if i != d]
-            cross_hi = [hi[i] for i in range(N) if i != d]
+    with span("capacity.faces"):
+        # an interior face with fluid on only one side is fluid boundary, not a
+        # flux face: the smoothstep gate closes it (see penguin_tpu.capacity).
+        # Space-time slabs carry moments on the SPATIAL axes only: the time
+        # faces have e_a·n = 0 for every spatial a, so they drop out of the
+        # half-box divergence identity behind gamma_half_moments.
+        n_mom = (N - 1) if spacetime else N
+        do_moms = cut_moments and n_mom >= 2
+        # relative measure floor for centroid validity (f32 quadrature noise on
+        # near-empty faces is ~1e-7 of the measure scale)
+        eps_rel = 1e-12 if dtype.itemsize >= 8 else 1e-5
+        tiny = torch.finfo(dtype).tiny
+        A, Am = [], []
+        for d in range(N):
+            shp = [1] * N
+            shp[d] = n[d] + 1
+            fco = nodes[d].reshape(shp)
+            fshape = tuple(n[i] + 1 if i == d else n[i] for i in range(N))
+            if N == 1:
+                Ad = (body(fco) <= 0.0).to(dtype)
+            else:
+                cross_lo = [lo[i] for i in range(N) if i != d]
+                cross_hi = [hi[i] for i in range(N) if i != d]
 
-            def phi_face(*cs, _d=d, _f=fco):
-                return body(*_insert(cs, _d, _f))
+                def phi_face(*cs, _d=d, _f=fco):
+                    return body(*_insert(cs, _d, _f))
 
-            # slab spatial faces keep the default TIME closed form: the
-            # moving solvers interpolate the body linearly in t, so the
-            # crossing-time root is exact
-            Ad, Amoms = box_integrals(phi_face, cross_lo, cross_hi, p=p, s=s)
-            if do_moms and d < n_mom:
-                cross_meas_f = 1.0
-                for i in range(N):
-                    if i != d:
-                        cross_meas_f = cross_meas_f * (hi[i] - lo[i])
-                eps_m = eps_rel * cross_meas_f
-                Asafe = torch.clamp_min(Ad, tiny)
-                comps, ci = [], 0
-                for i in range(N):
-                    if i == d:
-                        comps.append(fco.expand(fshape))
-                    else:
-                        fc = 0.5 * (cross_lo[ci] + cross_hi[ci])
-                        cen = torch.where(Ad > eps_m, Amoms[ci] / Asafe, fc)
-                        cen = torch.clamp(cen, cross_lo[ci], cross_hi[ci])
-                        comps.append(cen.expand(fshape))
-                        ci += 1
-                Am.append(torch.stack(
-                    [_pad_cells(c, np_shape) for c in comps], dim=-1))
-            Ad = Ad.expand(fshape)
-        if not spacetime:
-            # static builds only: the moving solvers handle near-front
-            # slivers of a slab by their own aperture-gated disconnection
-            Ad = Ad * _face_open_fraction(V_cells, full_vol, d, n)
-        A.append(_pad_cells(Ad, np_shape))
+                # slab spatial faces keep the default TIME closed form: the
+                # moving solvers interpolate the body linearly in t, so the
+                # crossing-time root is exact
+                Ad, Amoms = box_integrals(phi_face, cross_lo, cross_hi,
+                                          p=p, s=s)
+                if do_moms and d < n_mom:
+                    cross_meas_f = 1.0
+                    for i in range(N):
+                        if i != d:
+                            cross_meas_f = cross_meas_f * (hi[i] - lo[i])
+                    eps_m = eps_rel * cross_meas_f
+                    Asafe = torch.clamp_min(Ad, tiny)
+                    comps, ci = [], 0
+                    for i in range(N):
+                        if i == d:
+                            comps.append(fco.expand(fshape))
+                        else:
+                            fc = 0.5 * (cross_lo[ci] + cross_hi[ci])
+                            cen = torch.where(Ad > eps_m,
+                                              Amoms[ci] / Asafe, fc)
+                            cen = torch.clamp(cen, cross_lo[ci], cross_hi[ci])
+                            comps.append(cen.expand(fshape))
+                            ci += 1
+                    Am.append(torch.stack(
+                        [_pad_cells(c, np_shape) for c in comps], dim=-1))
+                Ad = Ad.expand(fshape)
+            if not spacetime:
+                # static builds only: the moving solvers handle near-front
+                # slivers of a slab by their own aperture-gated disconnection
+                Ad = Ad * _face_open_fraction(V_cells, full_vol, d, n)
+            A.append(_pad_cells(Ad, np_shape))
 
     # --- centroid-line capacities B[d] (and their centroids Bm[d]) -----------
-    B, Bm = [], []
-    for d in range(N):
-        ccoord = C_cells[d]
-        if N == 1:
-            Bd = torch.where(is_empty, 0.0, (body(ccoord) <= 0.0).to(dtype))
-        else:
-            cross_lo = [lo[i] for i in range(N) if i != d]
-            cross_hi = [hi[i] for i in range(N) if i != d]
+    with span("capacity.lines"):
+        B, Bm = [], []
+        for d in range(N):
+            ccoord = C_cells[d]
+            if N == 1:
+                Bd = torch.where(is_empty, 0.0,
+                                 (body(ccoord) <= 0.0).to(dtype))
+            else:
+                cross_lo = [lo[i] for i in range(N) if i != d]
+                cross_hi = [hi[i] for i in range(N) if i != d]
 
-            def phi_line(*cs, _d=d, _c=ccoord):
-                return body(*_insert(cs, _d, _c))
+                def phi_line(*cs, _d=d, _c=ccoord):
+                    return body(*_insert(cs, _d, _c))
 
-            Bd, Bmoms = box_integrals(phi_line, cross_lo, cross_hi, p=p, s=s)
-            if do_moms and d < n_mom:
-                cross_meas_f = 1.0
-                for i in range(N):
-                    if i != d:
-                        cross_meas_f = cross_meas_f * (hi[i] - lo[i])
-                eps_m = eps_rel * cross_meas_f
-                Bsafe = torch.clamp_min(Bd, tiny)
-                comps, ci = [], 0
-                for i in range(N):
-                    if i == d:
-                        comps.append(ccoord.expand(n))
-                    else:
-                        cen = torch.where(Bd > eps_m, Bmoms[ci] / Bsafe,
-                                          box_center[i])
-                        cen = torch.clamp(cen, cross_lo[ci], cross_hi[ci])
-                        comps.append(cen.expand(n))
-                        ci += 1
-                Bm.append(torch.stack(
-                    [_pad_cells(c, np_shape) for c in comps], dim=-1))
-            Bd = torch.where(is_empty, 0.0, Bd)
-        B.append(_pad_cells(Bd.expand(n), np_shape))
+                Bd, Bmoms = box_integrals(phi_line, cross_lo, cross_hi,
+                                          p=p, s=s)
+                if do_moms and d < n_mom:
+                    cross_meas_f = 1.0
+                    for i in range(N):
+                        if i != d:
+                            cross_meas_f = cross_meas_f * (hi[i] - lo[i])
+                    eps_m = eps_rel * cross_meas_f
+                    Bsafe = torch.clamp_min(Bd, tiny)
+                    comps, ci = [], 0
+                    for i in range(N):
+                        if i == d:
+                            comps.append(ccoord.expand(n))
+                        else:
+                            cen = torch.where(Bd > eps_m, Bmoms[ci] / Bsafe,
+                                              box_center[i])
+                            cen = torch.clamp(cen, cross_lo[ci], cross_hi[ci])
+                            comps.append(cen.expand(n))
+                            ci += 1
+                    Bm.append(torch.stack(
+                        [_pad_cells(c, np_shape) for c in comps], dim=-1))
+                Bd = torch.where(is_empty, 0.0, Bd)
+            B.append(_pad_cells(Bd.expand(n), np_shape))
 
     # --- lower-half-cell volumes Vh[d] (cut-moment builds only) -------------
-    Vh = []
-    if do_moms:
-        for d in range(n_mom):
-            h_lo = [lo[i].expand(n) for i in range(N)]
-            h_hi = [C_cells[d] if i == d else hi[i].expand(n)
-                    for i in range(N)]
-            Vh_d, _ = box_integrals(body, h_lo, h_hi, p=p, s=s,
-                                    inner_axis=vol_inner)
-            Vh_d = torch.minimum(torch.clamp_min(Vh_d, 0.0), V_cells)
-            Vh.append(_pad_cells(Vh_d, np_shape))
+    with span("capacity.half_volumes"):
+        Vh = []
+        if do_moms:
+            for d in range(n_mom):
+                h_lo = [lo[i].expand(n) for i in range(N)]
+                h_hi = [C_cells[d] if i == d else hi[i].expand(n)
+                        for i in range(N)]
+                Vh_d, _ = box_integrals(body, h_lo, h_hi, p=p, s=s,
+                                        inner_axis=vol_inner)
+                Vh_d = torch.minimum(torch.clamp_min(Vh_d, 0.0), V_cells)
+                Vh.append(_pad_cells(Vh_d, np_shape))
 
     # --- staggered volumes W[d] ---------------------------------------------
-    W = []
-    for d in range(N):
-        if n[d] < 2:
-            W.append(torch.zeros(np_shape, dtype=dtype, device=device))
-            continue
-        st_lo = [C_cells[d].narrow(d, 0, n[d] - 1) if i == d
-                 else lo[i].expand(n).narrow(d, 0, n[d] - 1) for i in range(N)]
-        st_hi = [C_cells[d].narrow(d, 1, n[d] - 1) if i == d
-                 else hi[i].expand(n).narrow(d, 1, n[d] - 1) for i in range(N)]
-        Wd, _ = box_integrals(body, st_lo, st_hi, p=p, s=s,
-                              inner_axis=vol_inner)
-        # faces 1..n_d-1 hold values; faces 0 and n_d stay zero (reference
-        # convention, src/capacity.jl:394-430)
-        Wd = _pad_axes(Wd, [(1, 0) if i == d else (0, 0) for i in range(N)])
-        W.append(_pad_cells(Wd, np_shape))
+    with span("capacity.staggered"):
+        W = []
+        for d in range(N):
+            if n[d] < 2:
+                W.append(torch.zeros(np_shape, dtype=dtype, device=device))
+                continue
+            st_lo = [C_cells[d].narrow(d, 0, n[d] - 1) if i == d
+                     else lo[i].expand(n).narrow(d, 0, n[d] - 1)
+                     for i in range(N)]
+            st_hi = [C_cells[d].narrow(d, 1, n[d] - 1) if i == d
+                     else hi[i].expand(n).narrow(d, 1, n[d] - 1)
+                     for i in range(N)]
+            Wd, _ = box_integrals(body, st_lo, st_hi, p=p, s=s,
+                                  inner_axis=vol_inner)
+            # faces 1..n_d-1 hold values; faces 0 and n_d stay zero
+            # (reference convention, src/capacity.jl:394-430)
+            Wd = _pad_axes(Wd, [(1, 0) if i == d else (0, 0)
+                                for i in range(N)])
+            W.append(_pad_cells(Wd, np_shape))
 
     # --- interface measure Gamma (divergence identity) -----------------------
-    is_cut, cell_types, Gamma_cells = _gamma_from_apertures(
-        A, is_empty, is_cut, full_vol, lo, hi, n)
+    with span("capacity.interface"):
+        is_cut, cell_types, Gamma_cells = _gamma_from_apertures(
+            A, is_empty, is_cut, full_vol, lo, hi, n)
 
-    # --- interface centroids: closest-point projection of cell centers ------
-    if compute_centroids:
-        ctr = box_center
-        phi0 = body(*ctr)
-        grads = []
-        for d in range(N):
-            delta = 1e-4 * (hi[d] - lo[d])
-            cp = [ctr[i] + delta if i == d else ctr[i] for i in range(N)]
-            cm = [ctr[i] - delta if i == d else ctr[i] for i in range(N)]
-            grads.append((body(*cp) - body(*cm)) / (2.0 * delta))
-        g2 = grads[0] * grads[0]
-        for g in grads[1:]:
-            g2 = g2 + g * g
-        g2 = torch.clamp_min(g2, 1e-300)
-        C_ga_cells = [torch.where(is_cut, ctr[d] - phi0 * grads[d] / g2, 0.0)
-                      for d in range(N)]
-    else:
-        C_ga_cells = [torch.zeros(n, dtype=dtype, device=device)
-                      for _ in range(N)]
+        # --- interface centroids: closest-point projection of cell centers
+        if compute_centroids:
+            ctr = box_center
+            phi0 = body(*ctr)
+            grads = []
+            for d in range(N):
+                delta = 1e-4 * (hi[d] - lo[d])
+                cp = [ctr[i] + delta if i == d else ctr[i] for i in range(N)]
+                cm = [ctr[i] - delta if i == d else ctr[i] for i in range(N)]
+                grads.append((body(*cp) - body(*cm)) / (2.0 * delta))
+            g2 = grads[0] * grads[0]
+            for g in grads[1:]:
+                g2 = g2 + g * g
+            g2 = torch.clamp_min(g2, 1e-300)
+            C_ga_cells = [torch.where(is_cut, ctr[d] - phi0 * grads[d] / g2,
+                                      0.0) for d in range(N)]
+        else:
+            C_ga_cells = [torch.zeros(n, dtype=dtype, device=device)
+                          for _ in range(N)]
 
     return Capacity(
         A=tuple(A),

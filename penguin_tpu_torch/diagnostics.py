@@ -3,10 +3,14 @@
 
 Counterpart of ``penguin_tpu.diagnostics``:
 
-- ``timed(name)`` — context manager timing a block; before the clock stops
-  it waits for the device of every CUDA tensor in an optional ``sync``
-  result, so device work is included; records into a global registry
-  (``report()`` prints a table).
+- ``span(name)`` — context manager leaving one host event named ``name`` in
+  a running ``torch.profiler`` trace, on the clock of the trace's device
+  events, and nothing on the device timeline; with no profiler running it
+  costs the call alone (port only: JAX has no counterpart).
+- ``timed(name)`` — context manager timing a block inside ``span(name)``;
+  before the clock stops it waits for the device of every CUDA tensor in an
+  optional ``sync`` result, so device work is included; records into a
+  global registry (``report()`` prints a table).
 - ``trace(name, dir)`` — context manager wrapping ``torch.profiler`` (the
   CPU, and the CUDA device when there is one); on exit it writes a Chrome
   trace, ``<name>.pt.trace.json``, into ``dir``.
@@ -25,8 +29,9 @@ import time
 
 import numpy as np
 import torch
+from torch._C._profiler import _RecordFunctionFast
 
-__all__ = ["timed", "report", "reset", "trace", "log_every",
+__all__ = ["span", "timed", "report", "reset", "trace", "log_every",
            "KrylovHistory", "convergence_rates"]
 
 _REGISTRY: dict = {}
@@ -44,24 +49,41 @@ def _tensors(tree):
             yield from _tensors(v)
 
 
+def span(name):
+    """A context manager that leaves one host event named ``name``, around
+    its block, in a running ``torch.profiler`` trace.
+
+    The event is a ``cpu_op``, as an aten op is, on the profiler's clock,
+    which is the clock of the trace's kernels.  ``record_function`` would
+    make a ``user_annotation`` instead, which the profiler also mirrors onto
+    the device timeline, where it would read as device work.  With no
+    profiler running nothing is recorded and the block costs this call
+    alone (under a microsecond): no sync, no CUDA event, no registry
+    entry."""
+    return _RecordFunctionFast(name)
+
+
 @contextlib.contextmanager
 def timed(name, sync=None):
-    """Time a block; the devices of the CUDA tensors in ``sync`` (a tensor
-    or a tuple/list/dict of them, or ``box["sync"]`` set inside the block)
-    are synchronised before the clock stops, so their work is included."""
+    """Time a block, inside ``span(name)``; the devices of the CUDA tensors
+    in ``sync`` (a tensor or a tuple/list/dict of them, or ``box["sync"]``
+    set inside the block) are synchronised before the clock stops, so their
+    work is included."""
     t0 = time.perf_counter()
     box = {}
-    try:
-        yield box
-    finally:
-        target = box.get("sync", sync)
-        for device in {t.device for t in _tensors(target) if t.is_cuda}:
-            torch.cuda.synchronize(device)
-        el = time.perf_counter() - t0
-        rec = _REGISTRY.setdefault(name, {"n": 0, "total": 0.0, "max": 0.0})
-        rec["n"] += 1
-        rec["total"] += el
-        rec["max"] = max(rec["max"], el)
+    with span(name):
+        try:
+            yield box
+        finally:
+            target = box.get("sync", sync)
+            for device in {t.device for t in _tensors(target) if t.is_cuda}:
+                torch.cuda.synchronize(device)
+            el = time.perf_counter() - t0
+            rec = _REGISTRY.setdefault(name,
+                                       {"n": 0, "total": 0.0, "max": 0.0})
+            rec["n"] += 1
+            rec["total"] += el
+            rec["max"] = max(rec["max"], el)
 
 
 def report(print_fn=print):

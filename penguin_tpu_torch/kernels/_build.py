@@ -20,6 +20,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from ..diagnostics import span
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -59,9 +61,10 @@ def load_library(name):
                                    suffix=".so")
         os.close(fd)
         try:
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-                capture_output=True, text=True)
+            with span("kernels.build"):
+                proc = subprocess.run(
+                    [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+                    capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed to build csrc/{name}.cu "

@@ -23,6 +23,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from .diagnostics import span
+
 __all__ = [
     "dm", "dm_t", "dp", "dp_t", "sm", "sm_t", "sp", "sp_t",
     "DiffusionOps", "ConvectionOps", "make_diffusion_ops",
@@ -362,21 +364,22 @@ def make_diffusion_ops(capacity, periodic=None,
     """``cross_moment=True`` (requires a ``cut_moments=True`` capacity
     build) activates the wet-line cross-moment correction of ``B_d x``, see
     :class:`DiffusionOps`."""
-    Xw = None
-    if cross_moment:
-        if capacity.Bm is None:
-            raise ValueError(
-                "cross_moment=True needs capacity cut moments; build with "
-                "compute_capacity(..., cut_moments=True)")
-        Xw = _cross_weights(capacity)
-    return DiffusionOps(
-        A=capacity.A,
-        B=capacity.B,
-        V=capacity.V,
-        Wdag=make_wdag(capacity.W),
-        periodic=periodic,
-        Xw=Xw,
-    )
+    with span("operators.build"):
+        Xw = None
+        if cross_moment:
+            if capacity.Bm is None:
+                raise ValueError(
+                    "cross_moment=True needs capacity cut moments; build "
+                    "with compute_capacity(..., cut_moments=True)")
+            Xw = _cross_weights(capacity)
+        return DiffusionOps(
+            A=capacity.A,
+            B=capacity.B,
+            V=capacity.V,
+            Wdag=make_wdag(capacity.W),
+            periodic=periodic,
+            Xw=Xw,
+        )
 
 
 @dataclasses.dataclass

@@ -40,6 +40,7 @@ from ..assembly import (
     _col_G_nz,
 )
 from ..boundary import Dirichlet, eval_condition_value
+from ..diagnostics import span
 from ..kernels.stencil import _stencil_ref, stencil5_matvec, stencil7_matvec
 from ..operators import _shift_m, _shift_p, _zlast, dm, dm_t
 
@@ -73,22 +74,28 @@ def _cg(coeffs, dinv, tol2, maxiter, b, x, matvec=_apply_stencil, dot=_dot):
     rr = dot(r, r)
     k = torch.zeros((), dtype=torch.int64, device=b.device)
     for _ in range(0, maxiter, CG_CHUNK):
-        for _ in range(CG_CHUNK):
-            active = (rr > bound) & (k < maxiter)
-            Ap = matvec(coeffs, p)
-            pAp = dot(p, Ap)
-            alpha = torch.where(active, rz / torch.where(active, pAp, 1.0), 0.0)
-            x = x + alpha * p
-            r = r - alpha * Ap
-            z = dinv * r
-            rz_new = dot(r, z)
-            beta = torch.where(active, rz_new / torch.where(active, rz, 1.0),
-                               0.0)
-            p = z + beta * p
-            rz = torch.where(active, rz_new, rz)
-            rr = dot(r, r)
-            k = k + active.to(k.dtype)
-        if not bool((rr > bound) & (k < maxiter)):
+        # one profiler span for launching the chunk and one for its host
+        # read; none per iteration, where even ≈ 1 µs adds up
+        with span("heat_fast.cg_chunk"):
+            for _ in range(CG_CHUNK):
+                active = (rr > bound) & (k < maxiter)
+                Ap = matvec(coeffs, p)
+                pAp = dot(p, Ap)
+                alpha = torch.where(active,
+                                    rz / torch.where(active, pAp, 1.0), 0.0)
+                x = x + alpha * p
+                r = r - alpha * Ap
+                z = dinv * r
+                rz_new = dot(r, z)
+                beta = torch.where(active,
+                                   rz_new / torch.where(active, rz, 1.0), 0.0)
+                p = z + beta * p
+                rz = torch.where(active, rz_new, rz)
+                rr = dot(r, r)
+                k = k + active.to(k.dtype)
+        with span("heat_fast.cg_flag"):
+            more = bool((rr > bound) & (k < maxiter))
+        if not more:
             break
     return x, k
 
@@ -102,73 +109,78 @@ class FastHeatBE:
 
     def __init__(self, capacity, ops, diffusion, source, bc_i, bc_b, dt,
                  cg_tol=1e-6, cg_maxiter=32, dtype=None):
-        if dtype is None:
-            dtype = capacity.V.dtype
-        cast = lambda a: a.to(dtype)
-        self.dt = dt = float(dt)
-        V = cast(ops.V)
-        A = tuple(cast(a) for a in ops.A)
-        B = tuple(cast(b) for b in ops.B)
-        Wdag = tuple(cast(w) for w in ops.Wdag)
-        Id = cast(coefficient_diag(diffusion, capacity))
-        g_gamma = cast(gamma_value_vector(bc_i, capacity))
-        f_cells = cast(source_vector(source, capacity, 0.0))
-        Gamma = cast(capacity.Gamma)
-        ndim = len(A)
+        with span("heat_fast.build"):
+            if dtype is None:
+                dtype = capacity.V.dtype
+            cast = lambda a: a.to(dtype)
+            self.dt = dt = float(dt)
+            V = cast(ops.V)
+            A = tuple(cast(a) for a in ops.A)
+            B = tuple(cast(b) for b in ops.B)
+            Wdag = tuple(cast(w) for w in ops.Wdag)
+            Id = cast(coefficient_diag(diffusion, capacity))
+            g_gamma = cast(gamma_value_vector(bc_i, capacity))
+            f_cells = cast(source_vector(source, capacity, 0.0))
+            Gamma = cast(capacity.Gamma)
+            ndim = len(A)
 
-        # eliminated interface field: g on cut cells, 0 elsewhere
-        Tg = torch.where(Gamma > 0, g_gamma, 0.0)
+            # eliminated interface field: g on cut cells, 0 elsewhere
+            Tg = torch.where(Gamma > 0, g_gamma, 0.0)
 
-        border = border_info(capacity.mesh, bc_b, capacity=capacity)
-        bmask = torch.zeros(V.shape, dtype=torch.bool, device=V.device)
-        bvals = torch.zeros_like(V)
-        for key, cond, axis, side, mask in border.items:
-            if not isinstance(cond, Dirichlet):
-                raise ValueError("FastHeatBE supports Dirichlet borders only")
-            bmask = bmask | mask
-            bvals = torch.where(
-                mask, cast(eval_condition_value(cond.value, border.pos)), bvals)
+            border = border_info(capacity.mesh, bc_b, capacity=capacity)
+            bmask = torch.zeros(V.shape, dtype=torch.bool, device=V.device)
+            bvals = torch.zeros_like(V)
+            for key, cond, axis, side, mask in border.items:
+                if not isinstance(cond, Dirichlet):
+                    raise ValueError(
+                        "FastHeatBE supports Dirichlet borders only")
+                bmask = bmask | mask
+                bvals = torch.where(
+                    mask, cast(eval_condition_value(cond.value, border.pos)),
+                    bvals)
 
-        active = ((V != 0.0) | _col_G_nz(ops)) & (~bmask)
+            active = ((V != 0.0) | _col_G_nz(ops)) & (~bmask)
 
-        # collapse V + dt·Id·GᵀWꜝG to a (2N+1)-point stencil
-        #   y_j = c_c x_j + Σ_d (c_m[d] x_{j-1_d} + c_p[d] x_{j+1_d})
-        # row m (padding) vanishes automatically because B[m] = 0.
-        c_c = V
-        c_m, c_p = [], []
-        for d in range(ndim):
-            diag_d = _zlast(B[d] ** 2 * (Wdag[d] + _shift_p(Wdag[d], d)), d)
-            c_c = c_c + dt * Id * diag_d
-            c_m.append(-dt * Id * B[d] * Wdag[d] * _shift_m(B[d], d))
-            c_p.append(-dt * Id * B[d] * _shift_p(Wdag[d] * B[d], d))
-        # masking folded into the coefficients: inactive/border -> identity row
-        c_c = torch.where(active, c_c, 1.0)
-        coeffs = [c_c]
-        for d in range(ndim):
-            coeffs += [torch.where(active, c_m[d], 0.0),
-                       torch.where(active, c_p[d], 0.0)]
+            # collapse V + dt·Id·GᵀWꜝG to a (2N+1)-point stencil
+            #   y_j = c_c x_j + Σ_d (c_m[d] x_{j-1_d} + c_p[d] x_{j+1_d})
+            # row m (padding) vanishes automatically because B[m] = 0.
+            c_c = V
+            c_m, c_p = [], []
+            for d in range(ndim):
+                diag_d = _zlast(
+                    B[d] ** 2 * (Wdag[d] + _shift_p(Wdag[d], d)), d)
+                c_c = c_c + dt * Id * diag_d
+                c_m.append(-dt * Id * B[d] * Wdag[d] * _shift_m(B[d], d))
+                c_p.append(-dt * Id * B[d] * _shift_p(Wdag[d] * B[d], d))
+            # masking folded into the coefficients: inactive/border ->
+            # identity row
+            c_c = torch.where(active, c_c, 1.0)
+            coeffs = [c_c]
+            for d in range(ndim):
+                coeffs += [torch.where(active, c_m[d], 0.0),
+                           torch.where(active, c_p[d], 0.0)]
 
-        # constant rhs pieces: dt·V·f − dt·Id·GᵀWꜝH g_γ  (+ border values)
-        h_apply = 0.0
-        for d in range(ndim):
-            q = Wdag[d] * (A[d] * dm(Tg, d) - dm(B[d] * Tg, d))
-            h_apply = h_apply + Id * (B[d] * dm_t(q, d))
-        rhs_const = dt * V * f_cells - dt * h_apply
-        rhs_const = torch.where(active, rhs_const, 0.0)
-        rhs_const = torch.where(bmask, bvals, rhs_const)
+            # constant rhs pieces: dt·V·f − dt·Id·GᵀWꜝH g_γ  (+ border values)
+            h_apply = 0.0
+            for d in range(ndim):
+                q = Wdag[d] * (A[d] * dm(Tg, d) - dm(B[d] * Tg, d))
+                h_apply = h_apply + Id * (B[d] * dm_t(q, d))
+            rhs_const = dt * V * f_cells - dt * h_apply
+            rhs_const = torch.where(active, rhs_const, 0.0)
+            rhs_const = torch.where(bmask, bvals, rhs_const)
 
-        diag = torch.where(c_c == 0, 1.0, c_c)
-        self._coeffs = tuple(c.contiguous() for c in coeffs)
-        self._dinv = 1.0 / diag
-        self._Va = torch.where(active, V, 0.0)
-        self._rhs = rhs_const
-        self._tol2 = torch.tensor(cg_tol * cg_tol, dtype=dtype,
-                                  device=V.device)
-        self._cg_maxiter = int(cg_maxiter)
+            diag = torch.where(c_c == 0, 1.0, c_c)
+            self._coeffs = tuple(c.contiguous() for c in coeffs)
+            self._dinv = 1.0 / diag
+            self._Va = torch.where(active, V, 0.0)
+            self._rhs = rhs_const
+            self._tol2 = torch.tensor(cg_tol * cg_tol, dtype=dtype,
+                                      device=V.device)
+            self._cg_maxiter = int(cg_maxiter)
 
-        self.Tg = Tg
-        self.active = active
-        self.dtype = dtype
+            self.Tg = Tg
+            self.active = active
+            self.dtype = dtype
 
     # the CG's matvec and dot: ``parallel.sharding`` replaces them on one
     # rank's copy (a halo exchange before the stencil, a sum over the ranks
@@ -193,7 +205,9 @@ class FastHeatBE:
         # quadratically extrapolated warm start (x0 = 3Tn - 3Tn-1 + Tn-2)
         T = T1 = T2 = T0
         for _ in range(n_steps):
-            Tn, iters = self.step(T, 3.0 * T - 3.0 * T1 + T2)
+            # closed before the yield: the caller's work stays outside
+            with span("heat_fast.step"):
+                Tn, iters = self.step(T, 3.0 * T - 3.0 * T1 + T2)
             T, T1, T2 = Tn, T, T1
             yield T, iters
 
