@@ -19,13 +19,28 @@ for CUDA tensors, the plain composite for CPU tensors.
 CG termination stays on the device.  The JAX version tests
 ``vdot(r, r) > tol² · vdot(b, b)`` inside ``lax.while_loop``; a Python
 ``while`` on that tensor would wait for the device on every iteration.
-Here the CG runs in chunks of ``CG_CHUNK`` iterations.  Each iteration
-computes a device-side ``active`` flag, the same test the JAX loop makes,
-and an inactive iteration is a no-op: its step lengths are zeroed, with
-the divisions guarded first, so no NaN can appear.  The host reads the flag
+Here the CG runs in chunks of ``CG_CHUNK`` iterations on a state that each
+iteration updates in place.  Each iteration ends by computing the next
+one's device-side ``active`` flag, the same test the JAX loop makes, and an
+inactive iteration is a no-op: its step lengths are zeroed, with the
+divisions guarded first, so no NaN can appear.  The host reads the flag
 once per chunk.  The iterate and the iteration count therefore equal the
 early-exit loop's.  ``CG_CHUNK = 8`` covers the easy benchmark step (1-7
 iterations) with one read, and costs at most 7 wasted iterations per solve.
+
+On a card the chunks are CUDA graphs.  A chunk is ≈ 240 small kernels;
+issued one by one from Python, each costs more host time than device time,
+so the device mostly waits.  The first solve of a solver captures two
+graphs in a private memory pool, after an eager warm-up on a side stream:
+``first`` (the prologue, from the right-hand side and the starting iterate
+in two static buffers, and one chunk) and ``more`` (one further chunk).  A
+solve fills the buffers, replays ``first``, then ``more`` while the flag
+says so, and returns a copy of the iterate.  The kernels, their order and
+the results are those of the eager chunks.  The graphs engage where the
+solver can see that they may: CUDA fields on the current device, of the
+solver's shape and dtype, and the module's own matvec and dot.  A CPU
+solver, or a copy whose matvec or dot is replaced on the instance (the
+decomposed CG of ``parallel.sharding``), runs the same chunks eagerly.
 """
 
 from __future__ import annotations
@@ -62,42 +77,142 @@ def _dot(a, b):
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
-def _cg(coeffs, dinv, tol2, maxiter, b, x, matvec=_apply_stencil, dot=_dot):
-    """Jacobi-preconditioned CG from ``x``; returns (x, iterations) with the
-    iteration count as a 0-d device tensor.  ``matvec(coeffs, x)`` and
-    ``dot`` are the solver's ``_cg_matvec`` and ``_cg_dot``."""
-    r = b - matvec(coeffs, x)
-    z = dinv * r
-    p = z
-    rz = dot(r, z)
-    bound = tol2 * torch.clamp_min(dot(b, b), 1e-30)
-    rr = dot(r, r)
-    k = torch.zeros((), dtype=torch.int64, device=b.device)
-    for _ in range(0, maxiter, CG_CHUNK):
-        # one profiler span for launching the chunk and one for its host
+class _Chunks:
+    """One CG solve, issued a chunk at a time on a state that each iteration
+    updates in place: the iterate ``x`` (the tensor given), ``r``, ``p``,
+    ``rz``, the iteration count ``k`` and the next iteration's flag
+    ``active``.  ``first`` runs the prologue and one chunk, ``more`` one
+    further chunk.  ``matvec(coeffs, x)`` and ``dot`` are the solver's
+    ``_cg_matvec`` and ``_cg_dot``."""
+
+    def __init__(self, coeffs, dinv, tol2, maxiter, b, x, matvec, dot):
+        self.coeffs, self.dinv, self.tol2 = coeffs, dinv, tol2
+        self.maxiter, self.b, self.x = maxiter, b, x
+        self.matvec, self.dot = matvec, dot
+
+    def first(self):
+        b, dot = self.b, self.dot
+        self.r = r = b - self.matvec(self.coeffs, self.x)
+        self.p = z = self.dinv * r
+        self.rz = dot(r, z)
+        self.bound = self.tol2 * torch.clamp_min(dot(b, b), 1e-30)
+        self.k = torch.zeros((), dtype=torch.int64, device=b.device)
+        self.active = (dot(r, r) > self.bound) & (self.k < self.maxiter)
+        self.more()
+
+    def more(self):
+        coeffs, dinv, matvec, dot = self.coeffs, self.dinv, self.matvec, \
+            self.dot
+        x, r, p, rz, k, active = (self.x, self.r, self.p, self.rz, self.k,
+                                  self.active)
+        for _ in range(CG_CHUNK):
+            Ap = matvec(coeffs, p)
+            pAp = dot(p, Ap)
+            alpha = torch.where(active,
+                                rz / torch.where(active, pAp, 1.0), 0.0)
+            x.add_(alpha * p)
+            r.sub_(alpha * Ap)
+            z = dinv * r
+            rz_new = dot(r, z)
+            beta = torch.where(active,
+                               rz_new / torch.where(active, rz, 1.0), 0.0)
+            torch.add(z, beta * p, out=p)
+            torch.where(active, rz_new, rz, out=rz)
+            rr = dot(r, r)
+            k.add_(active.to(k.dtype))
+            torch.bitwise_and(rr > self.bound, k < self.maxiter, out=active)
+
+
+def _issue(first, more, cg):
+    """Issues ``first``, then ``more`` while the flag ``cg.active`` is up,
+    reading it once a chunk: at least one chunk, at most
+    ``ceil(maxiter / CG_CHUNK)``."""
+    chunk = first
+    for _ in range(0, max(cg.maxiter, 1), CG_CHUNK):
+        # one profiler span for issuing the chunk and one for its host
         # read; none per iteration, where even ≈ 1 µs adds up
         with span("heat_fast.cg_chunk"):
-            for _ in range(CG_CHUNK):
-                active = (rr > bound) & (k < maxiter)
-                Ap = matvec(coeffs, p)
-                pAp = dot(p, Ap)
-                alpha = torch.where(active,
-                                    rz / torch.where(active, pAp, 1.0), 0.0)
-                x = x + alpha * p
-                r = r - alpha * Ap
-                z = dinv * r
-                rz_new = dot(r, z)
-                beta = torch.where(active,
-                                   rz_new / torch.where(active, rz, 1.0), 0.0)
-                p = z + beta * p
-                rz = torch.where(active, rz_new, rz)
-                rr = dot(r, r)
-                k = k + active.to(k.dtype)
+            chunk()
         with span("heat_fast.cg_flag"):
-            more = bool((rr > bound) & (k < maxiter))
-        if not more:
+            go = bool(cg.active)
+        if not go:
             break
-    return x, k
+        chunk = more
+
+
+def _cg(coeffs, dinv, tol2, maxiter, b, x, matvec=_apply_stencil, dot=_dot):
+    """Jacobi-preconditioned CG from ``x``, issued eagerly; returns (x,
+    iterations) with the iteration count as a 0-d device tensor.  ``x`` is
+    left as it was."""
+    cg = _Chunks(coeffs, dinv, tol2, maxiter, b,
+                 x.clone(memory_format=torch.contiguous_format), matvec, dot)
+    _issue(cg.first, cg.more, cg)
+    return cg.x, cg.k
+
+
+# the launch counters of the kernels a captured chunk may hold
+_COUNTED = (stencil5_matvec, stencil7_matvec)
+
+
+def _launches():
+    return [fn.launches for fn in _COUNTED]
+
+
+class _CGGraphs:
+    """A solver's CG as the CUDA graphs ``first`` and ``more`` (see the
+    module docstring), over the static buffers ``b`` and ``x``."""
+
+    def __init__(self, solver):
+        like = solver._Va
+        self.b = torch.zeros_like(like)
+        self.x = torch.zeros_like(like)
+        arrays = (solver._coeffs, solver._dinv, solver._tol2,
+                  solver._cg_maxiter)
+        self.cg = _Chunks(*arrays, self.b, self.x, _apply_stencil, _dot)
+        with torch.cuda.device(like.device):
+            # the warm-up a capture asks for (cuBLAS's handle for the
+            # stream), on a side stream and the zero buffers; the stencil's
+            # plain version stands in for the hand-written kernel, which
+            # needs none, so the counters count only the solves' launches
+            warm = _Chunks(*arrays, self.b, self.x, _stencil_ref, _dot)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                warm.first()
+                warm.more()
+            torch.cuda.current_stream().wait_stream(side)
+            first = self._capture(self.cg.first, None)
+            more = self._capture(self.cg.more, first[0].pool())
+        self.first, self.more = _replayer(*first), _replayer(*more)
+
+    @staticmethod
+    def _capture(fn, pool):
+        """``fn`` captured in ``pool`` (a new private one for None); the
+        stencil launches it records did not run, so they come off the
+        wrappers' counters, and each replay adds them."""
+        graph = torch.cuda.CUDAGraph()
+        before = _launches()
+        with torch.cuda.graph(graph, pool=pool):
+            fn()
+        counts = [n - m for n, m in zip(_launches(), before)]
+        for fn_, n in zip(_COUNTED, counts):
+            fn_.launches -= n
+        return graph, counts
+
+    def solve(self):
+        """The CG from the buffers as they are; returns (x, iterations) as
+        new tensors, which later solves leave alone."""
+        _issue(self.first, self.more, self.cg)
+        return self.x.clone(), self.cg.k.clone()
+
+
+def _replayer(graph, counts):
+    def replay():
+        with span("heat_fast.cg_graph"):
+            graph.replay()
+        for fn, n in zip(_COUNTED, counts):
+            fn.launches += n
+    return replay
 
 
 class FastHeatBE:
@@ -181,6 +296,7 @@ class FastHeatBE:
             self.Tg = Tg
             self.active = active
             self.dtype = dtype
+            self._cg_graphs = None
 
     # the CG's matvec and dot: ``parallel.sharding`` replaces them on one
     # rank's copy (a halo exchange before the stencil, a sum over the ranks
@@ -188,15 +304,41 @@ class FastHeatBE:
     _cg_matvec = staticmethod(_apply_stencil)
     _cg_dot = staticmethod(_dot)
 
+    def __copy__(self):
+        # a copy captures graphs of its own: this solver's read its buffers
+        new = object.__new__(type(self))
+        vars(new).update(vars(self))
+        new._cg_graphs = None
+        return new
+
+    def _graphs(self, *fields):
+        """The solver's CG graphs, captured on first use, where they may run
+        on ``fields``; None where the CG runs eagerly."""
+        Va = self._Va
+        if not (Va.is_cuda and self._cg_matvec is _apply_stencil
+                and self._cg_dot is _dot
+                and Va.device.index == torch.cuda.current_device()
+                and all(f.device == Va.device and f.dtype == Va.dtype
+                        and f.shape == Va.shape for f in fields)):
+            return None
+        if self._cg_graphs is None:
+            self._cg_graphs = _CGGraphs(self)
+        return self._cg_graphs
+
     # ------------------------------------------------------------------
     def step(self, Tw, x0=None):
         """One BE step: returns (T_{n+1}, cg_iters) with ``cg_iters`` a 0-d
         tensor on the device."""
-        b = self._Va * Tw + self._rhs
         x0 = Tw if x0 is None else x0
-        return _cg(self._coeffs, self._dinv, self._tol2, self._cg_maxiter,
-                   b, x0.contiguous(), matvec=self._cg_matvec,
-                   dot=self._cg_dot)
+        graphs = self._graphs(Tw, x0)
+        if graphs is None:
+            return _cg(self._coeffs, self._dinv, self._tol2,
+                       self._cg_maxiter, self._Va * Tw + self._rhs, x0,
+                       matvec=self._cg_matvec, dot=self._cg_dot)
+        torch.add(self._Va * Tw, self._rhs, out=graphs.b)
+        if x0 is not graphs.x:
+            graphs.x.copy_(x0)
+        return graphs.solve()
 
     def matvec(self, x):
         return self._cg_matvec(self._coeffs, x.contiguous())
@@ -207,7 +349,11 @@ class FastHeatBE:
         for _ in range(n_steps):
             # closed before the yield: the caller's work stays outside
             with span("heat_fast.step"):
-                Tn, iters = self.step(T, 3.0 * T - 3.0 * T1 + T2)
+                # on the graph path straight into the buffer the CG reads
+                graphs = self._graphs(T)
+                x0 = torch.add(3.0 * T - 3.0 * T1, T2,
+                               out=None if graphs is None else graphs.x)
+                Tn, iters = self.step(T, x0)
             T, T1, T2 = Tn, T, T1
             yield T, iters
 

@@ -12,6 +12,7 @@ import penguin_tpu_torch as tpt
 from penguin_tpu_torch.convert import CAPACITY_FIELDS, capacity_from_numpy
 from penguin_tpu_torch.solvers import FastHeatBE
 from penguin_tpu_torch.solvers import heat_fast as thf
+from torch_heat_cases import CG_CASES, heat_solver
 from torch_stefan_cases import one_thread  # noqa: F401  (autouse fixture)
 
 BORDERS_2D = ("left", "right", "top", "bottom")
@@ -183,26 +184,23 @@ def _cg_early_exit(coeffs, dinv, tol2, maxiter, b, x):
     return x, k
 
 
-@pytest.mark.parametrize("tol,maxiter", [(1e-6, 64), (1e-12, 13),
-                                         (1e-12, 16), (1e-30, 3), (1.0, 5)],
-                         ids=["converges", "cap13", "cap16", "cap3",
-                              "converged0"])
-def test_chunked_cg_equals_early_exit(tol, maxiter):
-    """The chunked CG with its device-side flag returns the early-exit
-    loop's iterate bit for bit and its iteration count, whether it stops
-    mid-chunk, at the cap, or before the first iteration."""
-    n, L = 24, 4.0
-    mesh = tpt.Mesh((n, n), (L, L))
-    cap = tpt.compute_capacity(tpt.geometry.circle((2.0, 2.0), 1.0), mesh,
-                               p=4, s=1, device="cpu")
-    fast = FastHeatBE(cap, tpt.make_diffusion_ops(cap), 1.0, 0.0,
-                      tpt.Dirichlet(1.0), _borders(tpt, BORDERS_2D),
-                      100.0 * (L / n) ** 2)
+@pytest.mark.parametrize("ndim,case", [(2, c) for c in CG_CASES]
+                         + [(3, "converges")],
+                         ids=list(CG_CASES) + ["converges_3d"])
+def test_chunked_cg_equals_early_exit(ndim, case):
+    """The chunked CG, its state updated in place, with its device-side
+    flag returns the early-exit loop's iterate bit for bit and its
+    iteration count, whether it stops mid-chunk, at the cap, or before the
+    first iteration, in 2D (stencil5) and 3D (stencil7); its starting
+    iterate is left as it was."""
+    tol, maxiter = CG_CASES[case]
+    fast = heat_solver(ndim, {2: 24, 3: 12}[ndim], 100.0)
     rng = np.random.default_rng(6)
-    b = torch.as_tensor(rng.standard_normal(mesh.np_shape))
+    b = torch.as_tensor(rng.standard_normal(tuple(fast._Va.shape)))
     x0 = torch.zeros_like(b)
     tol2 = torch.tensor(tol * tol, dtype=torch.float64)
     x, k = thf._cg(fast._coeffs, fast._dinv, tol2, maxiter, b, x0)
+    assert not x0.any()
     xr, kr = _cg_early_exit(fast._coeffs, fast._dinv, tol2, maxiter, b, x0)
     assert int(k) == kr
     assert torch.equal(x, xr)
