@@ -31,6 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .diagnostics import span
+
 __all__ = [
     "materialize_dense",
     "solve_linear",
@@ -318,6 +320,31 @@ def _norm(reduce):
     return lambda v: torch.sqrt(reduce(torch.dot(v, v)))
 
 
+def _givens_column(col, j, cs, sn, g, R):
+    """Column ``j`` of the Hessenberg matrix (``col``: its ``j + 1`` entries
+    and the next vector's norm, read on the host) rotated by the Givens
+    rotations so far and a new one eliminating its subdiagonal, which also
+    rotates the residual vector ``g``; stored in ``R[:, j]``."""
+    np_dt = R.dtype
+    h = np.zeros(R.shape[0], np_dt)
+    h[:j + 1] = col[:j + 1]
+    hnext = col[j + 1]
+    for i in range(j):
+        hi = cs[i] * h[i] + sn[i] * h[i + 1]
+        hi1 = -sn[i] * h[i] + cs[i] * h[i + 1]
+        h[i], h[i + 1] = hi, hi1
+    # new rotation eliminating (h[j], hnext)
+    denom = np.sqrt(h[j] ** 2 + hnext ** 2)
+    safe = np_dt.type(1.0) if denom == 0 else denom
+    c_j = np_dt.type(1.0) if denom == 0 else h[j] / safe
+    s_j = hnext / safe
+    cs[j], sn[j] = c_j, s_j
+    h[j] = c_j * h[j] + s_j * hnext
+    g[j + 1] = -s_j * g[j]
+    g[j] = c_j * g[j]
+    R[:, j] = h
+
+
 def _arnoldi_cycle(Af, Mz, x, rhs, m, thresh, np_dt, reduce=None):
     """One restart cycle of GMRES(m) from ``x``, with the early exit on the
     running Givens residual ``|g[j]|``.  ``Af`` maps a flat vector to the
@@ -340,39 +367,30 @@ def _arnoldi_cycle(Af, Mz, x, rhs, m, thresh, np_dt, reduce=None):
     g = np.zeros(m + 1, np_dt)
     g[0] = host_read(beta)
     j = 0
+    # profiler spans: one Arnoldi iteration, and inside it the host read of
+    # its Hessenberg column with the Givens update
+    it_span, host_span = (("linsolve.pgmres_iter", "linsolve.pgmres_host")
+                          if Z is None else
+                          ("linsolve.fgmres_iter", "linsolve.fgmres_host"))
     # the fixed-depth cycle oversolved by up to a full restart
     while j < m and g[j] ** 2 > thresh:
-        if Z is None:
-            w = Af(V[j])
-        else:
-            Z[j] = Mz(V[j])
-            w = Af(Z[j])
-        # modified Gram-Schmidt over the vectors built so far
-        hs = []
-        for i in range(j + 1):
-            hij = dot(V[i], w)
-            w = w - hij * V[i]
-            hs.append(hij)
-        hnext_d = norm(w)
-        V[j + 1] = w / torch.where(hnext_d == 0, 1.0, hnext_d)
-        col = host_read(torch.stack(hs + [hnext_d]))
-        h = np.zeros(m + 1, np_dt)
-        h[:j + 1] = col[:j + 1]
-        hnext = col[j + 1]
-        for i in range(j):
-            hi = cs[i] * h[i] + sn[i] * h[i + 1]
-            hi1 = -sn[i] * h[i] + cs[i] * h[i + 1]
-            h[i], h[i + 1] = hi, hi1
-        # new rotation eliminating (h[j], hnext)
-        denom = np.sqrt(h[j] ** 2 + hnext ** 2)
-        safe = np_dt.type(1.0) if denom == 0 else denom
-        c_j = np_dt.type(1.0) if denom == 0 else h[j] / safe
-        s_j = hnext / safe
-        cs[j], sn[j] = c_j, s_j
-        h[j] = c_j * h[j] + s_j * hnext
-        g[j + 1] = -s_j * g[j]
-        g[j] = c_j * g[j]
-        R[:, j] = h
+        with span(it_span):
+            if Z is None:
+                w = Af(V[j])
+            else:
+                Z[j] = Mz(V[j])
+                w = Af(Z[j])
+            # modified Gram-Schmidt over the vectors built so far
+            hs = []
+            for i in range(j + 1):
+                hij = dot(V[i], w)
+                w = w - hij * V[i]
+                hs.append(hij)
+            hnext_d = norm(w)
+            V[j + 1] = w / torch.where(hnext_d == 0, 1.0, hnext_d)
+            with span(host_span):
+                _givens_column(host_read(torch.stack(hs + [hnext_d])), j,
+                               cs, sn, g, R)
         j += 1
     # back substitution on the rotated (upper-triangular) R.  Columns >= j
     # were never set and get unit diagonals, but g[j] holds the NONZERO

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..boundary import Outflow
+from ..diagnostics import span
 from ..linsolve import (
     DenseFactorSolver,
     _lstsq_min_norm,
@@ -277,8 +278,11 @@ class NavierStokesMono(StokesMono):
                               t_start=0.0, record=None):
         """θ-scheme with implicit (Picard-linearised) convection per step.
         ``method="fgmres"`` runs a fixed ``picard_iters`` sweeps a step by
-        flexible GMRES with the DCT-CG block-Schur M, and records the last
-        sweep's ``krylov_iters``/``krylov_relres`` per step; other methods
+        flexible GMRES with the DCT-CG block-Schur M (kept across calls,
+        :meth:`_picard_preconditioner`), and records the last sweep's
+        ``krylov_iters``/``krylov_relres`` per step and every sweep's in
+        ``krylov_sweep_iters``/``krylov_sweep_relres`` (steps × sweeps),
+        host values that cost no read; other methods
         solve each sweep through ``solve_linear`` and stop a step's sweeps
         once max|Δx| < ``picard_tol``.  With CN the (1-θ) explicit
         convection goes on the rhs.  ``t_start``/``record`` as in
@@ -297,25 +301,31 @@ class NavierStokesMono(StokesMono):
             return base_rhs(xc, t, t + dt)
 
         if method == "fgmres":
-            M = self.make_block_preconditioner(dt=dt, theta=theta,
-                                               schur="dct_cg",
-                                               schur_cg_iters=8)
-            iters, rels, recs = [], [], []
+            M = self._picard_preconditioner(dt, theta)
+            iters, rels, recs, sweeps = [], [], [], []
             for k in range(n_steps):
-                b = step_rhs(x, t_start + k * dt)
-                x_it = x
-                for _ in range(picard_iters):
-                    x_it, its, rel = fgmres(
-                        self._picard_rows(x_it, dt, theta), b, x_it, Minv=M,
-                        tol=tol, maxiter=maxiter, restart=40,
-                        _reduce=self._krylov_reduce)
-                x = x_it
-                iters.append(its)
-                rels.append(rel)
-                if record is not None:
-                    recs.append(record(x))
+                with span("navierstokes.step"):
+                    b = step_rhs(x, t_start + k * dt)
+                    x_it = x
+                    for _ in range(picard_iters):
+                        with span("navierstokes.picard_sweep"):
+                            x_it, its, rel = fgmres(
+                                self._picard_rows(x_it, dt, theta), b, x_it,
+                                Minv=M, tol=tol, maxiter=maxiter, restart=40,
+                                _reduce=self._krylov_reduce)
+                        sweeps.append((its, float(rel)))
+                    x = x_it
+                    iters.append(its)
+                    rels.append(rel)
+                    if record is not None:
+                        recs.append(record(x))
             self.x = x
             self._store_logs(iters, rels, record, recs)
+            shape = (n_steps, picard_iters)
+            self.krylov_sweep_iters = np.asarray(
+                [s[0] for s in sweeps], dtype=np.int64).reshape(shape)
+            self.krylov_sweep_relres = np.asarray(
+                [s[1] for s in sweeps], dtype=np.float64).reshape(shape)
             return self.x
 
         for k in range(n_steps):
@@ -333,6 +343,26 @@ class NavierStokesMono(StokesMono):
             x = x_it
         self.x = x
         return self.x
+
+    def _picard_preconditioner(self, dt, theta):
+        """The fgmres Picard stepper's block-Schur M (DCT-CG Schur, 8 inner
+        iterations), built once per (dt, θ) and kept across calls: a run
+        that advances in intervals of a few steps would otherwise rebuild
+        it every interval.  It is built again when dt or θ changes, or when
+        the solver's operator or material (the fluid, the masks, μ or ρ) is
+        replaced.  The build is deterministic, so a kept M gives the
+        results a new one would, bit for bit."""
+        key = (float(dt), float(theta))
+        # the owner too: a rank's solver copies the instance dict of its
+        # view (parallel.sharding), this entry with it, and needs its own M
+        deps = (self, self.fluid, self.mu_diag, self.rho_diag, self.u_active,
+                self.p_active, self.borders)
+        kept = getattr(self, "_picard_M", None)
+        if (kept is None or kept[0] != key
+                or any(a is not b for a, b in zip(kept[1], deps))):
+            self._picard_M = (key, deps, self.make_block_preconditioner(
+                dt=dt, theta=theta, schur="dct_cg", schur_cg_iters=8))
+        return self._picard_M[2]
 
     # ------------------------------------------------------------------
     # diagnostics: reaction forces on the cut boundary

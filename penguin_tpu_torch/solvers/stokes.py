@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..diagnostics import span
 from ..assembly import (
     _col_G_nz,
     _col_H_nz,
@@ -1032,6 +1033,14 @@ class StokesMono:
         ``_rank`` (private, ``parallel.sharding``): the M of one rank of a
         decomposed solve, built on a windowed view; it takes and returns the
         rank's blocks (see :class:`_WholeGrid`).  Only ``mom="jacobi"``."""
+        with span("stokes.precond_build"):
+            return self._block_preconditioner(
+                dt, theta, cheb_iters, lmin, lmax, conv_diag, schur,
+                schur_cg_iters, mom, mom_cg_iters, _rank)
+
+    def _block_preconditioner(self, dt, theta, cheb_iters, lmin, lmax,
+                              conv_diag, schur, schur_cg_iters, mom,
+                              mom_cg_iters, _rank):
         N = self.N
         like = self._like
         rk = _WholeGrid(self.fluid.capacity_p.V.shape) if _rank is None \
@@ -1256,6 +1265,10 @@ class StokesMono:
                       if isinstance(lmax, torch.Tensor) else max(lmax, 1e-30))
 
         def M(r):
+            with span("stokes.precond"):
+                return _apply(r)
+
+        def _apply(r):
             r = rk.grow(r)
             rws = r[0:2 * N:2]
             rgs = r[1:2 * N:2]
