@@ -40,7 +40,7 @@ from ..linsolve import (
     solve_linear,
 )
 from ..operators import _shift_m, _shift_p, dp, sm, sp
-from .stokes import _AXIS_KEYS, _AXIS_KEYS_1D, StokesMono
+from .stokes import _AXIS_KEYS, _AXIS_KEYS_1D, StokesMono, _PrecondGraph
 
 __all__ = ["NavierStokesMono"]
 
@@ -351,17 +351,27 @@ class NavierStokesMono(StokesMono):
         it every interval.  It is built again when dt or θ changes, or when
         the solver's operator or material (the fluid, the masks, μ or ρ) is
         replaced.  The build is deterministic, so a kept M gives the
-        results a new one would, bit for bit."""
+        results a new one would, bit for bit.  Being kept, it is the one M
+        whose apply pays for a CUDA graph (:class:`stokes._PrecondGraph`):
+        on a card its first apply captures, and the others replay."""
         key = (float(dt), float(theta))
         # the owner too: a rank's solver copies the instance dict of its
-        # view (parallel.sharding), this entry with it, and needs its own M
+        # view (parallel.sharding), this entry with it, and needs its own
+        # M; a copied solver likewise gets its own M and graph.  The masks
+        # the apply reads: a graph holds the ones it was captured with
         deps = (self, self.fluid, self.mu_diag, self.rho_diag, self.u_active,
-                self.p_active, self.borders)
+                self.p_active, self.borders, self.pin_mask,
+                self.outflow_p_mask, self._divw)
         kept = getattr(self, "_picard_M", None)
         if (kept is None or kept[0] != key
                 or any(a is not b for a, b in zip(kept[1], deps))):
-            self._picard_M = (key, deps, self.make_block_preconditioner(
-                dt=dt, theta=theta, schur="dct_cg", schur_cg_iters=8))
+            M = self.make_block_preconditioner(
+                dt=dt, theta=theta, schur="dct_cg", schur_cg_iters=8)
+            if getattr(M, "leaves", None) is not None:
+                # the whole grid's M; a rank's, or one a caller wrapped
+                # (parallel.sharding's timing), stays as it is
+                M = _PrecondGraph(M)
+            self._picard_M = (key, deps, M)
         return self._picard_M[2]
 
     # ------------------------------------------------------------------
