@@ -131,3 +131,6 @@ def stencil7_matvec(cc, cxm, cxp, cym, cyp, czm, czp, x):
 
 stencil5_matvec.launches = 0
 stencil7_matvec.launches = 0
+# the wrappers that count their launches; ``_graph`` keeps these counters
+# true for the kernels a CUDA graph replays
+_COUNTED = (stencil5_matvec, stencil7_matvec)

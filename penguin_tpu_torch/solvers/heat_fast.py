@@ -31,15 +31,16 @@ iterations) with one read, and costs at most 7 wasted iterations per solve.
 On a card the chunks are CUDA graphs.  A chunk is ≈ 240 small kernels;
 issued one by one from Python, each costs more host time than device time,
 so the device mostly waits.  The first solve of a solver captures two
-graphs in a private memory pool, after an eager warm-up on a side stream:
-``first`` (the prologue, from the right-hand side and the starting iterate
-in two static buffers, and one chunk) and ``more`` (one further chunk).  A
-solve fills the buffers, replays ``first``, then ``more`` while the flag
-says so, and returns a copy of the iterate.  The kernels, their order and
-the results are those of the eager chunks.  The graphs engage where the
-solver can see that they may: CUDA fields on the current device, of the
-solver's shape and dtype, and the module's own matvec and dot.  A CPU
-solver, or a copy whose matvec or dot is replaced on the instance (the
+graphs through ``_graph.capture``, in one private memory pool, after an
+eager warm-up on a side stream: ``first`` (the prologue, from the
+right-hand side and the starting iterate in two static buffers, and one
+chunk) and ``more`` (one further chunk).  A solve fills the buffers,
+replays ``first``, then ``more`` while the flag says so, and returns a copy
+of the iterate.  The kernels, their order and the results are those of the
+eager chunks.  The graphs engage where ``_graph.may_replay`` lets them
+(CUDA fields on the current device, of the solver's shape and dtype,
+outside another capture) and the matvec and dot are the module's own.  A
+CPU solver, or a copy whose matvec or dot is replaced on the instance (the
 decomposed CG of ``parallel.sharding``), runs the same chunks eagerly.
 """
 
@@ -47,6 +48,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import _graph
 from ..assembly import (
     border_info,
     coefficient_diag,
@@ -150,71 +152,6 @@ def _cg(coeffs, dinv, tol2, maxiter, b, x, matvec=_apply_stencil, dot=_dot):
     return cg.x, cg.k
 
 
-# the launch counters of the kernels a captured chunk may hold
-_COUNTED = (stencil5_matvec, stencil7_matvec)
-
-
-def _launches():
-    return [fn.launches for fn in _COUNTED]
-
-
-class _CGGraphs:
-    """A solver's CG as the CUDA graphs ``first`` and ``more`` (see the
-    module docstring), over the static buffers ``b`` and ``x``."""
-
-    def __init__(self, solver):
-        like = solver._Va
-        self.b = torch.zeros_like(like)
-        self.x = torch.zeros_like(like)
-        arrays = (solver._coeffs, solver._dinv, solver._tol2,
-                  solver._cg_maxiter)
-        self.cg = _Chunks(*arrays, self.b, self.x, _apply_stencil, _dot)
-        with torch.cuda.device(like.device):
-            # the warm-up a capture asks for (cuBLAS's handle for the
-            # stream), on a side stream and the zero buffers; the stencil's
-            # plain version stands in for the hand-written kernel, which
-            # needs none, so the counters count only the solves' launches
-            warm = _Chunks(*arrays, self.b, self.x, _stencil_ref, _dot)
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                warm.first()
-                warm.more()
-            torch.cuda.current_stream().wait_stream(side)
-            first = self._capture(self.cg.first, None)
-            more = self._capture(self.cg.more, first[0].pool())
-        self.first, self.more = _replayer(*first), _replayer(*more)
-
-    @staticmethod
-    def _capture(fn, pool):
-        """``fn`` captured in ``pool`` (a new private one for None); the
-        stencil launches it records did not run, so they come off the
-        wrappers' counters, and each replay adds them."""
-        graph = torch.cuda.CUDAGraph()
-        before = _launches()
-        with torch.cuda.graph(graph, pool=pool):
-            fn()
-        counts = [n - m for n, m in zip(_launches(), before)]
-        for fn_, n in zip(_COUNTED, counts):
-            fn_.launches -= n
-        return graph, counts
-
-    def solve(self):
-        """The CG from the buffers as they are; returns (x, iterations) as
-        new tensors, which later solves leave alone."""
-        _issue(self.first, self.more, self.cg)
-        return self.x.clone(), self.cg.k.clone()
-
-
-def _replayer(graph, counts):
-    def replay():
-        with span("heat_fast.cg_graph"):
-            graph.replay()
-        for fn, n in zip(_COUNTED, counts):
-            fn.launches += n
-    return replay
-
-
 class FastHeatBE:
     """Backward-Euler heat stepper with Dirichlet interface + Dirichlet
     borders, eliminated interface unknowns, and stencil-collapsed CG.
@@ -312,17 +249,24 @@ class FastHeatBE:
         return new
 
     def _graphs(self, *fields):
-        """The solver's CG graphs, captured on first use, where they may run
-        on ``fields``; None where the CG runs eagerly."""
+        """``(chunks, first, more)``: the CG's state over its static buffers
+        and its graphs (see the module docstring), captured on first use,
+        where they may replay on ``fields``; None where the CG is eager."""
         Va = self._Va
-        if not (Va.is_cuda and self._cg_matvec is _apply_stencil
-                and self._cg_dot is _dot
-                and Va.device.index == torch.cuda.current_device()
-                and all(f.device == Va.device and f.dtype == Va.dtype
-                        and f.shape == Va.shape for f in fields)):
+        if not (self._cg_matvec is _apply_stencil and self._cg_dot is _dot
+                and _graph.may_replay(fields, (Va,) * len(fields))):
             return None
         if self._cg_graphs is None:
-            self._cg_graphs = _CGGraphs(self)
+            arrays = (self._coeffs, self._dinv, self._tol2, self._cg_maxiter,
+                      torch.zeros_like(Va), torch.zeros_like(Va))
+            cg = _Chunks(*arrays, _apply_stencil, _dot)
+            # the plain stencil warms up: the kernel needs none, and the
+            # device then runs only the solves' stencil launches
+            warm = _Chunks(*arrays, _stencil_ref, _dot)
+            graphs, _ = _graph.capture((cg.first, cg.more), Va.device,
+                                       "heat_fast.cg_graph",
+                                       warm_up=(warm.first, warm.more))
+            self._cg_graphs = (cg, *graphs)
         return self._cg_graphs
 
     # ------------------------------------------------------------------
@@ -335,10 +279,13 @@ class FastHeatBE:
             return _cg(self._coeffs, self._dinv, self._tol2,
                        self._cg_maxiter, self._Va * Tw + self._rhs, x0,
                        matvec=self._cg_matvec, dot=self._cg_dot)
-        torch.add(self._Va * Tw, self._rhs, out=graphs.b)
-        if x0 is not graphs.x:
-            graphs.x.copy_(x0)
-        return graphs.solve()
+        cg, first, more = graphs
+        torch.add(self._Va * Tw, self._rhs, out=cg.b)
+        if x0 is not cg.x:
+            cg.x.copy_(x0)
+        _issue(first, more, cg)
+        # new tensors, which later solves leave alone
+        return cg.x.clone(), cg.k.clone()
 
     def matvec(self, x):
         return self._cg_matvec(self._coeffs, x.contiguous())
@@ -352,7 +299,7 @@ class FastHeatBE:
                 # on the graph path straight into the buffer the CG reads
                 graphs = self._graphs(T)
                 x0 = torch.add(3.0 * T - 3.0 * T1, T2,
-                               out=None if graphs is None else graphs.x)
+                               out=None if graphs is None else graphs[0].x)
                 Tn, iters = self.step(T, x0)
             T, T1, T2 = Tn, T, T1
             yield T, iters

@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import _graph
 from ..boundary import Outflow
 from ..diagnostics import span
 from ..linsolve import (
@@ -40,7 +41,7 @@ from ..linsolve import (
     solve_linear,
 )
 from ..operators import _shift_m, _shift_p, dp, sm, sp
-from .stokes import _AXIS_KEYS, _AXIS_KEYS_1D, StokesMono, _PrecondGraph
+from .stokes import _AXIS_KEYS, _AXIS_KEYS_1D, StokesMono
 
 __all__ = ["NavierStokesMono"]
 
@@ -352,8 +353,9 @@ class NavierStokesMono(StokesMono):
         the solver's operator or material (the fluid, the masks, μ or ρ) is
         replaced.  The build is deterministic, so a kept M gives the
         results a new one would, bit for bit.  Being kept, it is the one M
-        whose apply pays for a CUDA graph (:class:`stokes._PrecondGraph`):
-        on a card its first apply captures, and the others replay."""
+        whose apply pays for a CUDA graph (:class:`_graph.StaticCall` over
+        the state's leaves, inside the ``stokes.precond`` span): on a card
+        its first apply captures, and the others replay."""
         key = (float(dt), float(theta))
         # the owner too: a rank's solver copies the instance dict of its
         # view (parallel.sharding), this entry with it, and needs its own
@@ -367,10 +369,16 @@ class NavierStokesMono(StokesMono):
                 or any(a is not b for a, b in zip(kept[1], deps))):
             M = self.make_block_preconditioner(
                 dt=dt, theta=theta, schur="dct_cg", schur_cg_iters=8)
-            if getattr(M, "leaves", None) is not None:
+            if (getattr(self.make_block_preconditioner, "__func__", None)
+                    is StokesMono.make_block_preconditioner):
                 # the whole grid's M; a rank's, or one a caller wrapped
                 # (parallel.sharding's timing), stays as it is
-                M = _PrecondGraph(M)
+                graph = _graph.StaticCall(M.apply, self.zero_state(),
+                                          "stokes.precond_graph")
+
+                def M(r):
+                    with span("stokes.precond"):
+                        return graph(r)
             self._picard_M = (key, deps, M)
         return self._picard_M[2]
 

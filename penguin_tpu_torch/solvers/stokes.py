@@ -174,72 +174,6 @@ class _WholeGrid:
         return _along(M, x, axis)
 
 
-class _PrecondGraph:
-    """A block-Schur ``M`` of :meth:`StokesMono.make_block_preconditioner`,
-    built on the whole grid (its ``leaves`` are set), whose apply is
-    replayed as one CUDA graph over static buffers.
-
-    The apply is a fixed chain of kernels with no host read, so a replay
-    issues what the eager apply would, on the same data, in the same order.
-    A call replays where M's fields are CUDA tensors of the current device
-    and its 2N+1 leaves match them in shape, dtype and device; any other
-    call (the CPU, other leaves, a call inside another capture) runs M's
-    eager apply.  The first call that can replay captures: a warm-up on a
-    side stream (cuBLAS's handle for the DCT's matmuls), then one capture
-    in a private pool.  A replay returns new tensors, which later calls
-    leave alone; a leaf that M passes through is the caller's own, as it
-    is eagerly.
-
-    Only an M kept across solves pays for its capture (a few eager applies
-    of host time): ``NavierStokesMono._picard_preconditioner`` wraps the M
-    it keeps, and every M built for one solve stays eager."""
-
-    def __init__(self, M):
-        self.eager = M
-        self._graph = None
-
-    def __call__(self, r):
-        with span("stokes.precond"):
-            if not self._replays(r):
-                return self.eager.apply(r)
-            if self._graph is None:
-                self._capture()
-            for buf, leaf in zip(self._inputs, r):
-                buf.copy_(leaf)
-            with span("stokes.precond_graph"):
-                self._graph.replay()
-            return tuple(out.clone() if i is None else r[i]
-                         for out, i in zip(self._outputs, self._passed))
-
-    def _replays(self, r):
-        shapes, dtype, device = self.eager.leaves
-        return (device.type == "cuda"
-                and device.index == torch.cuda.current_device()
-                and not torch.cuda.is_current_stream_capturing()
-                and len(r) == len(shapes)
-                and all(t.shape == s and t.dtype == dtype
-                        and t.device == device for t, s in zip(r, shapes)))
-
-    def _capture(self):
-        shapes, dtype, device = self.eager.leaves
-        inputs = tuple(torch.zeros(s, dtype=dtype, device=device)
-                       for s in shapes)
-        with torch.cuda.device(device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self.eager.apply(inputs)
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                outputs = self.eager.apply(inputs)
-        self._inputs, self._outputs, self._graph = inputs, outputs, graph
-        # the outputs that are inputs (M passes the uγ leaves through)
-        self._passed = tuple(
-            next((i for i, b in enumerate(inputs) if out is b), None)
-            for out in outputs)
-
-
 class VelocityBorder:
     """Border surgery for one velocity component (applied to both uω and uγ
     rows).  ``comp``: which velocity component this mesh carries.
@@ -1370,12 +1304,9 @@ class StokesMono:
 
         M.mom_solve = mom_solve  # diagnostics / tests
         M.schur_solve = solve_s
-        # for _PrecondGraph: the apply outside its span, and the leaves'
-        # (shapes, dtype, device) on the whole grid (None on a rank)
+        # the apply outside its span, which a CUDA graph of the kept M
+        # captures (``NavierStokesMono._picard_preconditioner``)
         M.apply = _apply
-        M.leaves = None if _rank is not None else (
-            tuple(self.u_active[d].shape for d in range(N) for _ in (0, 1))
-            + (self.p_active.shape,), like["dtype"], self.p_active.device)
         return M
 
     def _mom_cg(self, d, dt, theta, conv_diag, dinv_d, mom, iters):

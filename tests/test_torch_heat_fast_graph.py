@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from penguin_tpu_torch import _graph
 from penguin_tpu_torch.kernels import stencil as ks
 from penguin_tpu_torch.solvers import heat_fast as thf
 from torch_heat_cases import CG_CASES, heat_solver
@@ -28,6 +29,21 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture
+def captures(monkeypatch):
+    """What ``_graph.capture`` returned during the test, one entry a
+    capture."""
+    seen = []
+    capture = _graph.capture
+
+    def recording(*args, **kw):
+        seen.append(capture(*args, **kw))
+        return seen[-1]
+
+    monkeypatch.setattr(_graph, "capture", recording)
+    return seen
 
 
 @pytest.fixture
@@ -64,7 +80,7 @@ def _matvecs(k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("ndim", [2, 3])
 @pytest.mark.parametrize("case", list(CG_CASES))
-def test_replay_equals_eager(device, ndim, case):
+def test_replay_equals_eager(device, captures, ndim, case):
     """Bit for bit in the iterate and the count, the first solve (which
     captures) and later ones (which only replay)."""
     tol, maxiter = CG_CASES[case]
@@ -77,7 +93,7 @@ def test_replay_equals_eager(device, ndim, case):
         xe, ke = thf._cg(fast._coeffs, fast._dinv, fast._tol2, maxiter, b,
                          zero)
         xg, kg = fast.step(Tw, zero)
-        assert fast._cg_graphs is not None
+        assert len(captures) == 1
         assert int(kg) == int(ke) <= maxiter
         assert torch.equal(xg, xe)
     if case == "converges":
@@ -88,7 +104,7 @@ def test_replay_equals_eager(device, ndim, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("ndim", [2, 3])
-def test_run_telemetry_replayed_equals_eager(device, ndim):
+def test_run_telemetry_replayed_equals_eager(device, captures, ndim):
     """The stepper with its warm start written into the graphs' buffer,
     against the same stepper run eagerly."""
     fast = heat_solver(ndim, SIZES[ndim], 100.0, device, cg_tol=1e-10,
@@ -101,7 +117,7 @@ def test_run_telemetry_replayed_equals_eager(device, ndim):
         assert torch.equal(T, Te)
         assert (int(last), int(mx)) == (int(laste), int(mxe))
         assert int(mx) > thf.CG_CHUNK
-    assert ref._cg_graphs is None
+    assert len(captures) == 1       # the graph solver's; the eager one none
 
 
 @pytest.mark.cuda
@@ -150,16 +166,19 @@ def test_replays_count_the_launches_that_ran(device, ndim):
 
 
 @pytest.mark.cuda
-def test_an_instance_override_captures_nothing(device):
-    """A copy holds no graph of the solver it came from; with its matvec
-    replaced on the instance, as a rank's block has it, it runs eagerly and
-    captures nothing, and agrees with the graphs bit for bit."""
+def test_an_instance_override_captures_nothing(device, captures):
+    """A copy holds no graph of the solver it came from: it captures its
+    own.  With its matvec replaced on the instance, as a rank's block has
+    it, a copy runs eagerly and captures nothing.  Both agree with the
+    graphs bit for bit."""
     fast = heat_solver(2, SIZES[2], DT_H2, device)
     Tw = _field(fast, 9)
     x, k = fast.step(Tw)
-    assert fast._cg_graphs is not None
+    assert len(captures) == 1
+    xt, kt = copy.copy(fast).step(Tw)
+    assert len(captures) == 2 and captures[1][0] != captures[0][0]
+    assert int(kt) == int(k) and torch.equal(xt, x)
     blk = copy.copy(fast)
-    assert blk._cg_graphs is None
     calls = []
 
     def matvec(coeffs, v):
@@ -168,16 +187,15 @@ def test_an_instance_override_captures_nothing(device):
 
     blk._cg_matvec = matvec
     xb, kb = blk.step(Tw)
-    assert blk._cg_graphs is None
+    assert len(captures) == 2
     assert len(calls) == _matvecs(int(kb))
     assert int(kb) == int(k) and torch.equal(xb, x)
 
 
-def test_a_cpu_solver_captures_nothing():
-    """On the CPU the same chunks run eagerly, and the solver holds no
-    graph."""
+def test_a_cpu_solver_captures_nothing(captures):
+    """On the CPU the same chunks run eagerly, and nothing is captured."""
     fast = heat_solver(2, 16, 100.0, cg_tol=1e-10, cg_maxiter=200)
     T0 = torch.zeros_like(fast._Va)
     T, last, mx = fast.run_telemetry(T0, 3)
-    assert fast._graphs(T0) is None and fast._cg_graphs is None
+    assert not _graph.may_replay((T0,), (fast._Va,)) and captures == []
     assert int(mx) > thf.CG_CHUNK and bool(torch.isfinite(T).all())

@@ -1,5 +1,5 @@
 """The Picard stepper's kept block-Schur M replayed as one CUDA graph
-(``stokes._PrecondGraph``) against its eager apply, on the DFG 2D-2 channel
+(a ``_graph.StaticCall`` of its apply) against its eager apply, on the DFG 2D-2 channel
 of ``perfbench.paths.ns_picard`` at 44 × 16 and 128 × 64, on a card (marked
 ``cuda``; each test skips without one); and the kept M on the CPU, which
 never captures.  No JAX here, so the file runs on a machine that has none:
@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from penguin_tpu_torch.solvers import stokes as tst
+from penguin_tpu_torch import _graph
 from perfbench.paths import ns_picard as entry_path
 from perfbench.reference import ns_picard as ref
 
@@ -62,6 +62,28 @@ def case(request):
     return _CASES[grid]
 
 
+@pytest.fixture
+def graphs(monkeypatch):
+    """The ``StaticCall`` objects made during the test, in order: one for
+    each kept M wrapped for a graph."""
+    made = []
+    init = _graph.StaticCall.__init__
+
+    def recording(self, *args):
+        init(self, *args)
+        made.append(self)
+
+    monkeypatch.setattr(_graph.StaticCall, "__init__", recording)
+    return made
+
+
+def _eager(M, r):
+    """M's eager apply on ``r``: the same call with the graph gate shut."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(_graph, "may_replay", lambda fields, like: False)
+        return M(r)
+
+
 def _fresh(case):
     """A copy of the case's solver with no kept M: its own M and graph."""
     solver = copy.copy(case["solver"])
@@ -80,20 +102,20 @@ def _equal(a, b):
 
 
 @pytest.mark.cuda
-def test_replay_equals_eager_on_random_leaves(case):
+def test_replay_equals_eager_on_random_leaves(case, graphs):
     """Bit for bit, the first call (which captures) and later ones (which
     only replay)."""
     M = _fresh(case)._picard_preconditioner(DT, THETA)
-    assert isinstance(M, tst._PrecondGraph) and M._graph is None
+    assert len(graphs) == 1 and graphs[0].replay is None
     for seed in SEEDS:
         r = _leaves(case["start"], seed)
         z = M(r)
-        assert M._graph is not None
-        assert _equal(z, M.eager.apply(r))
+        assert graphs[0].replay is not None
+        assert _equal(z, _eager(M, r))
 
 
 @pytest.mark.cuda
-def test_replay_equals_eager_in_float32():
+def test_replay_equals_eager_in_float32(graphs):
     """A float32 channel (``chip_smoke``'s DFG 2D-2 runs one) captures its
     own float32 graph, bit for bit the eager apply."""
     if not torch.cuda.is_available():
@@ -102,40 +124,40 @@ def test_replay_equals_eager_in_float32():
     config.update(dtype="float32")
     solver, _, _ = entry_path.build_solver(config, torch.device("cuda", 0))
     M = solver._picard_preconditioner(DT, THETA)
-    shapes, dtype, device = M.eager.leaves
-    assert dtype == torch.float32
-    like = tuple(torch.zeros(s, dtype=dtype, device=device) for s in shapes)
+    like = solver.zero_state()
+    assert all(t.dtype == torch.float32 for t in like)
     for seed in SEEDS:
         r = _leaves(like, seed)
-        assert M._replays(r) and _equal(M(r), M.eager.apply(r))
-    assert M._graph is not None
+        assert _graph.may_replay(r, like) and _equal(M(r), _eager(M, r))
+    assert graphs[0].replay is not None
 
 
 @pytest.mark.cuda
-def test_replay_equals_eager_on_fgmres_basis_vectors(case, monkeypatch):
+def test_replay_equals_eager_on_fgmres_basis_vectors(case, graphs,
+                                                     monkeypatch):
     """The vectors a real Picard sweep hands M: every one recorded during a
     CN step, replayed again afterwards, equals the eager image."""
     solver = _fresh(case)
     seen = []
-    call = tst._PrecondGraph.__call__
+    call = _graph.StaticCall.__call__
 
     def recording(self, r):
         seen.append(tuple(t.clone() for t in r))
         return call(self, r)
 
-    monkeypatch.setattr(tst._PrecondGraph, "__call__", recording)
+    monkeypatch.setattr(_graph.StaticCall, "__call__", recording)
     solver.solve_unsteady_picard(DT, 1.0 + DT, scheme="CN", picard_iters=2,
                                  method="fgmres", tol=1e-6, maxiter=120,
                                  x0=case["start"], t_start=1.0)
-    monkeypatch.undo()
+    monkeypatch.setattr(_graph.StaticCall, "__call__", call)
     M = solver._picard_M[2]
-    assert len(seen) >= 4 and M._graph is not None
+    assert len(seen) >= 4 and graphs[0].replay is not None
     for r in seen[:: max(1, len(seen) // 4)]:
-        assert _equal(M(r), M.eager.apply(r))
+        assert _equal(M(r), _eager(M, r))
 
 
 @pytest.mark.cuda
-def test_a_held_result_is_left_alone(case):
+def test_a_held_result_is_left_alone(case, graphs):
     """A result kept across a second call is not the graph's static output,
     and the second call leaves it unchanged; a leaf M passes through is
     the caller's own, as it is eagerly."""
@@ -145,8 +167,8 @@ def test_a_held_result_is_left_alone(case):
     held = tuple(t.clone() for t in z1)
     z2 = M(r2)
     assert _equal(z1, held) and not _equal(z1, z2)
-    outs = {t.data_ptr() for t in M._outputs}
-    eager = M.eager.apply(r1)
+    outs = {t.data_ptr() for t in graphs[0].outputs}
+    eager = _eager(M, r1)
     for i, (z, e) in enumerate(zip(z1, eager)):
         if e is r1[i]:
             assert z is r1[i]
@@ -155,7 +177,7 @@ def test_a_held_result_is_left_alone(case):
 
 
 @pytest.mark.cuda
-def test_two_picard_steps_equal_the_eager_stepper(case, monkeypatch):
+def test_two_picard_steps_equal_the_eager_stepper(case, graphs, monkeypatch):
     """Two CN Picard steps through ``solve_unsteady_picard(method="fgmres")``
     give the same state and the same fgmres counts of every sweep with the
     graph as with the eager apply."""
@@ -164,81 +186,84 @@ def test_two_picard_steps_equal_the_eager_stepper(case, monkeypatch):
     graphed = _fresh(case)
     xg = graphed.solve_unsteady_picard(DT, 1.0 + 2 * DT, **kw)
     its_g = graphed.krylov_sweep_iters.copy()
-    assert graphed._picard_M[2]._graph is not None
+    assert graphs[0].replay is not None
 
-    monkeypatch.setattr(tst._PrecondGraph, "_replays", lambda self, r: False)
+    monkeypatch.setattr(_graph, "may_replay", lambda fields, like: False)
     eager = _fresh(case)
     xe = eager.solve_unsteady_picard(DT, 1.0 + 2 * DT, **kw)
-    assert eager._picard_M[2]._graph is None
+    assert len(graphs) == 2 and graphs[1].replay is None
     assert np.array_equal(its_g, eager.krylov_sweep_iters)
     assert _equal(xg, xe)
 
 
 @pytest.mark.cuda
-def test_foreign_leaves_run_eagerly(case):
+def test_foreign_leaves_run_eagerly(case, graphs):
     """Leaves of another dtype, shape, device or number run the eager apply
     (float32 leaves give its result bit for bit) and leave the graph and
     its buffers as they were."""
-    M = _fresh(case)._picard_preconditioner(DT, THETA)
+    solver = _fresh(case)
+    M = solver._picard_preconditioner(DT, THETA)
+    like = solver.zero_state()
     r = _leaves(case["start"], 3)
     M(r)
-    graph, inputs = M._graph, tuple(t.clone() for t in M._inputs)
+    graph = graphs[0]
+    replay, inputs = graph.replay, tuple(t.clone() for t in graph.inputs)
     r32 = _leaves(case["start"], 4, dtype=torch.float32)
-    assert not M._replays(r32)
-    assert _equal(M(r32), M.eager.apply(r32))
-    assert M._graph is graph and _equal(M._inputs, inputs)
-    assert not M._replays(tuple(t[:-1] for t in r))
-    assert not M._replays(tuple(t.cpu() for t in r))
-    assert not M._replays(r[:-1])
-    assert M._replays(r)
+    assert not _graph.may_replay(r32, like)
+    assert _equal(M(r32), graph.fn(r32))
+    assert graph.replay is replay and _equal(graph.inputs, inputs)
+    assert not _graph.may_replay(tuple(t[:-1] for t in r), like)
+    assert not _graph.may_replay(tuple(t.cpu() for t in r), like)
+    assert not _graph.may_replay(r[:-1], like)
+    assert _graph.may_replay(r, like)
 
 
 @pytest.mark.cuda
-def test_a_call_inside_another_capture_runs_eagerly(case):
+def test_a_call_inside_another_capture_runs_eagerly(case, graphs):
     """M called while a caller captures its own graph issues the eager
     apply into that graph, whose replay gives the eager result."""
     M = _fresh(case)._picard_preconditioner(DT, THETA)
     r = _leaves(case["start"], 5)
     M(r)
-    graph = M._graph
+    replay = graphs[0].replay
     static = tuple(t.clone() for t in r)
     outer = torch.cuda.CUDAGraph()
     with torch.cuda.graph(outer):
         out = M(static)
-    assert M._graph is graph
+    assert graphs[0].replay is replay
     for a, b in zip(static, _leaves(case["start"], 6)):
         a.copy_(b)
     outer.replay()
     torch.cuda.synchronize()
-    assert _equal(out, M.eager.apply(static))
+    assert _equal(out, _eager(M, static))
 
 
 @pytest.mark.cuda
-def test_a_copied_solver_captures_its_own_graph(case):
+def test_a_copied_solver_captures_its_own_graph(case, graphs):
     solver = _fresh(case)
     M = solver._picard_preconditioner(DT, THETA)
     r = _leaves(case["start"], 7)
     z = M(r)
     twin = copy.copy(solver)
     Mt = twin._picard_preconditioner(DT, THETA)
-    assert Mt is not M and Mt._graph is None
+    assert Mt is not M and len(graphs) == 2 and graphs[1].replay is None
     assert _equal(Mt(r), z)
-    assert Mt._graph is not None and Mt._graph is not M._graph
+    assert graphs[1].replay is not None
+    assert graphs[1].replay is not graphs[0].replay
     assert solver._picard_preconditioner(DT, THETA) is M
 
 
-def test_the_kept_m_on_the_cpu_never_captures():
+def test_the_kept_m_on_the_cpu_never_captures(graphs):
     """On the CPU the kept M runs its eager apply: equal to the unwrapped M
     bit for bit, and no graph."""
     cpu = torch.device("cpu")
     config = _config(GRIDS[0])
     solver, _, _ = entry_path.build_solver(config, cpu)
     M = solver._picard_preconditioner(DT, THETA)
-    assert isinstance(M, tst._PrecondGraph)
-    like = tuple(torch.zeros(s, dtype=torch.float64)
-                 for s in M.eager.leaves[0])
+    assert len(graphs) == 1
+    like = solver.zero_state()
     for seed in SEEDS:
         r = _leaves(like, seed)
-        assert not M._replays(r)
-        assert _equal(M(r), M.eager(r))
-    assert M._graph is None
+        assert not _graph.may_replay(r, like)
+        assert _equal(M(r), graphs[0].fn(r))
+    assert graphs[0].replay is None
