@@ -84,7 +84,9 @@ class StaticCall:
     tuple, over static inputs made like ``like``: the first call that
     ``may_replay`` captures it, later ones replay it, the others run it
     eagerly.  A replay returns clones of the static outputs, which later
-    calls leave alone, and a leaf ``fn`` passes through as the caller's."""
+    calls leave alone, and a leaf ``fn`` passes through as the caller's.
+    A leaf that is its own static input (from :meth:`fill`) is not copied
+    again."""
 
     def __init__(self, fn, like, name):
         self.fn, self.name = fn, name
@@ -101,7 +103,19 @@ class StaticCall:
             self.passed = [next((i for i, b in enumerate(self.inputs)
                                  if out is b), None) for out in self.outputs]
         for buf, leaf in zip(self.inputs, leaves):
-            buf.copy_(leaf)
+            if leaf is not buf:
+                buf.copy_(leaf)
         self.replay()
         return tuple(out.clone() if i is None else leaves[i]
                      for out, i in zip(self.outputs, self.passed))
+
+    def fill(self, leaves, start):
+        """The static inputs from ``start`` on holding ``leaves``' values,
+        for calls that pass the same leaves many times, where ``may_replay``
+        allows; else ``leaves``.  Either gives ``fn`` the same values."""
+        inputs = self.inputs[start:start + len(leaves)]
+        if not may_replay(leaves, inputs):
+            return tuple(leaves)
+        for buf, leaf in zip(inputs, leaves):
+            buf.copy_(leaf)
+        return inputs

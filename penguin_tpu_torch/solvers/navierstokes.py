@@ -149,40 +149,47 @@ class NavierStokesMono(StokesMono):
         """The operator linearised at ``x_k``: Stokes rows plus ρ C(u_k)
         - ρ/2 K(u_k) in the momentum diagonal; with ``dt`` the unsteady
         mass and θ-scaled viscous and convective blocks."""
-        N = self.N
-        uws_k = x_k[0:2 * N:2]
-        ugs_k = x_k[1:2 * N:2]
         rho_val = self._material("rho")
-        Kws = [self.conv_K(d, ugs_k) for d in range(N)]
+        lin = self._picard_linearisation(x_k)
+        return lambda x: self._picard_apply(x, lin, dt, theta, rho_val)
 
-        def apply(x):
-            uws = x[0:2 * N:2]
-            ugs = x[1:2 * N:2]
-            p = x[2 * N]
-            out = []
-            for d in range(N):
-                if dt is None:
-                    yw = (self._visc(d, uws[d], ugs[d])
-                          + self._grad(d, p)
-                          + rho_val * self.conv_bulk(d, uws_k, uws[d])
-                          - 0.5 * rho_val * Kws[d] * uws[d])
-                else:
-                    mass = self.rho_diag[d] * self.fluid.operator_u[d].V / dt
-                    yw = (mass * uws[d]
-                          + theta * self._visc(d, uws[d], ugs[d])
-                          + theta * rho_val * self.conv_bulk(d, uws_k, uws[d])
-                          - 0.5 * theta * rho_val * Kws[d] * uws[d]
-                          + self._grad(d, p))
-                yw = torch.where(self.u_active[d], yw, uws[d])
-                yg = ugs[d]
-                yw, yg = self.borders[d].matvec(yw, yg, uws[d], ugs[d])
-                out += [yw, yg]
-            yp = self._div(uws, ugs)
-            yp = torch.where(self.p_active, yp, p)
-            yp = self._gauge_fix(yp, p)
-            return tuple(out) + (yp,)
+    def _picard_linearisation(self, x_k):
+        """What the Picard rows read of ``x_k``: uω_k, then the K_d weights
+        of uγ_k (2N tensors)."""
+        N = self.N
+        ugs_k = x_k[1:2 * N:2]
+        return (tuple(x_k[0:2 * N:2])
+                + tuple(self.conv_K(d, ugs_k) for d in range(N)))
 
-        return apply
+    def _picard_apply(self, x, lin, dt, theta, rho_val):
+        """The Picard rows of ``x`` at the linearisation ``lin``."""
+        N = self.N
+        uws_k, Kws = lin[:N], lin[N:]
+        uws = x[0:2 * N:2]
+        ugs = x[1:2 * N:2]
+        p = x[2 * N]
+        out = []
+        for d in range(N):
+            if dt is None:
+                yw = (self._visc(d, uws[d], ugs[d])
+                      + self._grad(d, p)
+                      + rho_val * self.conv_bulk(d, uws_k, uws[d])
+                      - 0.5 * rho_val * Kws[d] * uws[d])
+            else:
+                mass = self.rho_diag[d] * self.fluid.operator_u[d].V / dt
+                yw = (mass * uws[d]
+                      + theta * self._visc(d, uws[d], ugs[d])
+                      + theta * rho_val * self.conv_bulk(d, uws_k, uws[d])
+                      - 0.5 * theta * rho_val * Kws[d] * uws[d]
+                      + self._grad(d, p))
+            yw = torch.where(self.u_active[d], yw, uws[d])
+            yg = ugs[d]
+            yw, yg = self.borders[d].matvec(yw, yg, uws[d], ugs[d])
+            out += [yw, yg]
+        yp = self._div(uws, ugs)
+        yp = torch.where(self.p_active, yp, p)
+        yp = self._gauge_fix(yp, p)
+        return tuple(out) + (yp,)
 
     # ------------------------------------------------------------------
     # unsteady: implicit viscous + AB2 explicit convection
@@ -279,15 +286,15 @@ class NavierStokesMono(StokesMono):
                               t_start=0.0, record=None):
         """θ-scheme with implicit (Picard-linearised) convection per step.
         ``method="fgmres"`` runs a fixed ``picard_iters`` sweeps a step by
-        flexible GMRES with the DCT-CG block-Schur M (kept across calls,
-        :meth:`_picard_preconditioner`), and records the last sweep's
-        ``krylov_iters``/``krylov_relres`` per step and every sweep's in
-        ``krylov_sweep_iters``/``krylov_sweep_relres`` (steps × sweeps),
-        host values that cost no read; other methods
-        solve each sweep through ``solve_linear`` and stop a step's sweeps
-        once max|Δx| < ``picard_tol``.  With CN the (1-θ) explicit
-        convection goes on the rhs.  ``t_start``/``record`` as in
-        :meth:`solve_unsteady`."""
+        flexible GMRES with the DCT-CG block-Schur M (kept across calls with
+        a CUDA graph of the Picard rows' apply, :meth:`_picard_kept`), and
+        records the last sweep's ``krylov_iters``/``krylov_relres`` per
+        step and every sweep's in ``krylov_sweep_iters``/
+        ``krylov_sweep_relres`` (steps × sweeps), host values that cost no
+        read; other methods solve each sweep through ``solve_linear`` and
+        stop a step's sweeps once max|Δx| < ``picard_tol``.  With CN the
+        (1-θ) explicit convection goes on the rhs.  ``t_start``/``record``
+        as in :meth:`solve_unsteady`."""
         theta = 0.5 if scheme in ("CN", "cn") else 1.0
         base_rhs = self.make_unsteady_rhs(dt, theta)
         rho_val = self._material("rho")
@@ -302,7 +309,7 @@ class NavierStokesMono(StokesMono):
             return base_rhs(xc, t, t + dt)
 
         if method == "fgmres":
-            M = self._picard_preconditioner(dt, theta)
+            M, rows = self._picard_kept(dt, theta)
             iters, rels, recs, sweeps = [], [], [], []
             for k in range(n_steps):
                 with span("navierstokes.step"):
@@ -311,9 +318,9 @@ class NavierStokesMono(StokesMono):
                     for _ in range(picard_iters):
                         with span("navierstokes.picard_sweep"):
                             x_it, its, rel = fgmres(
-                                self._picard_rows(x_it, dt, theta), b, x_it,
-                                Minv=M, tol=tol, maxiter=maxiter, restart=40,
-                                _reduce=self._krylov_reduce)
+                                self._picard_sweep_rows(x_it, dt, theta, rows),
+                                b, x_it, Minv=M, tol=tol, maxiter=maxiter,
+                                restart=40, _reduce=self._krylov_reduce)
                         sweeps.append((its, float(rel)))
                     x = x_it
                     iters.append(its)
@@ -347,23 +354,32 @@ class NavierStokesMono(StokesMono):
 
     def _picard_preconditioner(self, dt, theta):
         """The fgmres Picard stepper's block-Schur M (DCT-CG Schur, 8 inner
-        iterations), built once per (dt, θ) and kept across calls: a run
-        that advances in intervals of a few steps would otherwise rebuild
-        it every interval.  It is built again when dt or θ changes, or when
-        the solver's operator or material (the fluid, the masks, μ or ρ) is
-        replaced.  The build is deterministic, so a kept M gives the
-        results a new one would, bit for bit.  Being kept, it is the one M
-        whose apply pays for a CUDA graph (:class:`_graph.StaticCall` over
-        the state's leaves, inside the ``stokes.precond`` span): on a card
-        its first apply captures, and the others replay."""
-        key = (float(dt), float(theta))
+        iterations), kept across calls (:meth:`_picard_kept`).  Being kept,
+        it is the one M whose apply pays for a CUDA graph
+        (:class:`_graph.StaticCall` over the state's leaves, inside the
+        ``stokes.precond`` span): on a card its first apply captures, and
+        the others replay."""
+        return self._picard_kept(dt, theta)[0]
+
+    def _picard_kept(self, dt, theta):
+        """``(M, rows)``: the fgmres Picard stepper's M and a
+        :class:`_graph.StaticCall` of its Picard rows' apply over the
+        state's leaves and the linearisation's (None where
+        ``_picard_rows`` is not the class's own), built once per (dt, θ, ρ)
+        and kept across calls: a run that advances in intervals of a few
+        steps would otherwise rebuild them every interval.  They are built
+        again when dt, θ or ρ changes, or when the solver's operator or
+        material (the fluid, the masks, μ or ρ) is replaced.  The build is
+        deterministic, so a kept M gives the results a new one would, bit
+        for bit; dt, θ and ρ are numbers inside a captured graph."""
+        key = (float(dt), float(theta), self._material("rho"))
         # the owner too: a rank's solver copies the instance dict of its
         # view (parallel.sharding), this entry with it, and needs its own
-        # M; a copied solver likewise gets its own M and graph.  The masks
-        # the apply reads: a graph holds the ones it was captured with
+        # M; a copied solver likewise gets its own M and graphs.  The masks
+        # the applies read: a graph holds the ones it was captured with
         deps = (self, self.fluid, self.mu_diag, self.rho_diag, self.u_active,
                 self.p_active, self.borders, self.pin_mask,
-                self.outflow_p_mask, self._divw)
+                self.outflow_p_mask, self._divw, self._conv_out_masks)
         kept = getattr(self, "_picard_M", None)
         if (kept is None or kept[0] != key
                 or any(a is not b for a, b in zip(kept[1], deps))):
@@ -379,8 +395,41 @@ class NavierStokesMono(StokesMono):
                 def M(r):
                     with span("stokes.precond"):
                         return graph(r)
-            self._picard_M = (key, deps, M)
-        return self._picard_M[2]
+            rows = None
+            if self._own_picard_rows():
+                n, like = 2 * self.N + 1, self.zero_state()
+                rows = _graph.StaticCall(
+                    lambda leaves: self._picard_apply(
+                        leaves[:n], leaves[n:], dt, theta, key[2]),
+                    like + self._picard_linearisation(like),
+                    "navierstokes.picard_rows_graph")
+            self._picard_M = (key, deps, M, rows)
+        return self._picard_M[2:]
+
+    def _own_picard_rows(self):
+        """Whether ``_picard_rows`` is the class's own: a rank's
+        (``parallel.sharding``) and one a caller wrapped run as they are."""
+        return (getattr(self._picard_rows, "__func__", None)
+                is NavierStokesMono._picard_rows)
+
+    def _picard_sweep_rows(self, x_k, dt, theta, graph):
+        """The fgmres stepper's Picard rows at ``x_k``, each apply inside
+        the span ``navierstokes.picard_rows``: a replay of ``graph``, whose
+        linearisation leaves are filled once here, where it may, else the
+        eager apply."""
+        if graph is None or not self._own_picard_rows():
+            rows = self._picard_rows(x_k, dt, theta)
+        else:
+            lin = graph.fill(self._picard_linearisation(x_k),
+                             2 * self.N + 1)
+
+            def rows(x):
+                return graph(tuple(x) + lin)
+
+        def apply(x):
+            with span("navierstokes.picard_rows"):
+                return rows(x)
+        return apply
 
     # ------------------------------------------------------------------
     # diagnostics: reaction forces on the cut boundary

@@ -72,6 +72,18 @@ def test_a_cpu_static_call_captures_nothing(monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(out, want))
 
 
+def test_a_cpu_fill_hands_back_the_leaves():
+    """On CPU tensors ``fill`` leaves the static inputs alone and hands the
+    leaves back, so the eager chain reads them."""
+    like = (torch.zeros(3, 4, dtype=F64), torch.zeros(3, 4, dtype=F64))
+    call = _graph.StaticCall(_chain, like, "test.graph")
+    leaves = _leaves(like, 2)
+    held = call.fill(leaves[1:], 1)
+    assert held == leaves[1:] and not call.inputs[1].any()
+    out = call(leaves[:1] + held)
+    assert all(torch.equal(a, b) for a, b in zip(out, _chain(leaves)))
+
+
 def _chain(leaves):
     """A fixed chain from (a, b) to (y, z, b): two stencil matvecs among
     elementwise kernels and a reduction, and a leaf passed through."""
@@ -114,6 +126,24 @@ def test_replay_equals_eager(like):
         held.append((out, tuple(t.clone() for t in out)))
     for now, then in held:
         assert all(torch.equal(a, b) for a, b in zip(now, then))
+
+
+@pytest.mark.cuda
+def test_filled_inputs_are_read_as_filled(like):
+    """Leaves filled once into the static inputs serve every later call,
+    the first (which captures) and later replays, bit for bit the eager
+    chain on the values filled, whatever the source leaf holds later."""
+    call = _graph.StaticCall(_chain, like, "test.graph")
+    source = _leaves(like, 9)[1]
+    held = call.fill((source,), 1)
+    assert held[0] is call.inputs[1]
+    want_b = source.clone()
+    source.zero_()
+    for seed in (1, 2):
+        a = _leaves(like, seed)[0]
+        out = call((a,) + held)
+        assert call.replay is not None and out[2] is held[0]
+        assert all(torch.equal(p, q) for p, q in zip(out, _chain((a, want_b))))
 
 
 @pytest.mark.cuda

@@ -65,13 +65,15 @@ def case(request):
 @pytest.fixture
 def graphs(monkeypatch):
     """The ``StaticCall`` objects made during the test, in order: one for
-    each kept M wrapped for a graph."""
+    each kept M wrapped for a graph (the Picard rows' graphs, kept beside
+    it, are not M's)."""
     made = []
     init = _graph.StaticCall.__init__
 
     def recording(self, *args):
         init(self, *args)
-        made.append(self)
+        if self.name == "stokes.precond_graph":
+            made.append(self)
 
     monkeypatch.setattr(_graph.StaticCall, "__init__", recording)
     return made
@@ -142,7 +144,8 @@ def test_replay_equals_eager_on_fgmres_basis_vectors(case, graphs,
     call = _graph.StaticCall.__call__
 
     def recording(self, r):
-        seen.append(tuple(t.clone() for t in r))
+        if self.name == "stokes.precond_graph":
+            seen.append(tuple(t.clone() for t in r))
         return call(self, r)
 
     monkeypatch.setattr(_graph.StaticCall, "__call__", recording)
