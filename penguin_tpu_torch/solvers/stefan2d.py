@@ -28,6 +28,16 @@ read on the host once per GN iteration (each iteration is a whole slab
 capacity build), and the per-step logs are copied to numpy once after the
 loop.  The slab time ``t_start + k·dt`` is a Python float.
 
+Profiler spans (``diagnostics.span``; host events only, no number
+changes with them): ``stefan.step`` around one step of the march (its GN,
+the marker move and the resampling); ``stefan.gn_iter`` around one GN
+iteration, which holds ``stefan.slab_build`` (the slab's space-time
+capacities), ``stefan.slab_solve`` (the slab temperature solve with its
+Krylov iterations, and the interface flux), ``stefan.update`` (the
+Jacobian, the normal equations, the LM step and the λ update) and
+``stefan.gn_host`` (the iteration's host reads: the Krylov count and the
+stop test).
+
 The autodiff Jacobian is a ``torch.func.vmap`` of ``torch.func.jvp`` over
 blocks of ``_JAC_CHUNK`` marker tangents, through
 ``compute_cell_volumes(..., band_budget=)`` (whose band masks are detached
@@ -54,6 +64,7 @@ from ..capacity import (
     compute_capacity_spacetime,
     compute_cell_volumes,
 )
+from ..diagnostics import span
 from ..front_tracking import (
     polyline_curvature,
     polyline_normals,
@@ -270,22 +281,30 @@ def _gauss_newton(residual, jac_fn, mk_a, d0, newton_params, lm, smooth,
     lam = torch.full((), lm_init, **like)
     rn = torch.full((), math.inf, **like)
     rns, it, kit = [], 0, 0
-    while _still_iterating(it, max_iter, tol, rn):
-        # deliberately no warm start from the previous GN iterate: the slab
-        # solution stays a deterministic function of d (see the JAX version)
-        F, T, klv_it = residual(mk_a + d[:, None] * normals)
-        Fv = F.reshape(-1)
-        JTJ, JTF, rn_new = normal(jac_fn(d, mk_a, normals), Fv)
-        d_new = _lm_normal_step(JTJ, JTF, d, lam, alpha, *smooth, max_disp)
-        if it > 0:
-            lam = torch.where(rn_new < rn,
-                              torch.clamp_min(lam / lm_factor, lm_min),
-                              torch.clamp_max(lam * lm_factor, lm_max))
-        d, rn = d_new, rn_new
-        Fg = F if capture else None
-        rns.append(rn)
-        it += 1
-        kit += int(klv_it)
+    # the stop test of the next iteration closes this one's span
+    go = _still_iterating(it, max_iter, tol, rn)
+    while go:
+        with span("stefan.gn_iter"):
+            # deliberately no warm start from the previous GN iterate: the
+            # slab solution stays a deterministic function of d (see the
+            # JAX version)
+            F, T, klv_it = residual(mk_a + d[:, None] * normals)
+            with span("stefan.update"):
+                Fv = F.reshape(-1)
+                JTJ, JTF, rn_new = normal(jac_fn(d, mk_a, normals), Fv)
+                d_new = _lm_normal_step(JTJ, JTF, d, lam, alpha, *smooth,
+                                        max_disp)
+                if it > 0:
+                    lam = torch.where(
+                        rn_new < rn, torch.clamp_min(lam / lm_factor, lm_min),
+                        torch.clamp_max(lam * lm_factor, lm_max))
+            d, rn = d_new, rn_new
+            Fg = F if capture else None
+            rns.append(rn)
+            it += 1
+            with span("stefan.gn_host"):
+                kit += int(klv_it)
+                go = _still_iterating(it, max_iter, tol, rn)
     hist = torch.full((max_iter,), math.nan, **like)
     if rns:
         hist = torch.cat([torch.stack(rns), hist[len(rns):]])
@@ -302,10 +321,11 @@ def _march_markers(inner, u0, markers0, t_start, dt, K,
     d = torch.zeros(mk.shape[0], dtype=mk.dtype, device=mk.device)
     mk_log, logs = [], []
     for k in range(K + 1):
-        d0 = extrapolation_factor * d if k > 0 else torch.zeros_like(d)
-        d, Tn, out = inner(T, mk, d0, t_start + k * dt)
-        T = T if Tn is None else Tn
-        mk = resample_markers(mk + d[:, None] * polyline_normals(mk))
+        with span("stefan.step"):
+            d0 = extrapolation_factor * d if k > 0 else torch.zeros_like(d)
+            d, Tn, out = inner(T, mk, d0, t_start + k * dt)
+            T = T if Tn is None else Tn
+            mk = resample_markers(mk + d[:, None] * polyline_normals(mk))
         mk_log.append(mk)
         logs.append(out)
     return T, mk, host_read(torch.stack(mk_log)), tuple(zip(*logs))
@@ -317,6 +337,10 @@ def _stacked(values):
 
 class StefanMono2D(_ScalarSolverBase):
     """One-phase 2D Stefan solver with front tracking."""
+
+    # (Told, mk_a, mk_b, t, cap) of the last slab solved: the inputs of
+    # ``self.x`` and the space-time capacities it was solved on
+    last_slab = None
 
     def __init__(self, phase, bc_b, bc_i, dt, u0, mesh, scheme="BE"):
         self.phase = phase
@@ -335,17 +359,20 @@ class StefanMono2D(_ScalarSolverBase):
         D, f = self.phase.diffusion, self.phase.source
 
         def slab_solve(Told, mk_a, mk_b, t):
-            cap = compute_capacity_spacetime(
-                _st_marker_body, mesh, 0.0, dt, p=p, s=s,
-                params=(mk_a, mk_b, dt, sign), band_budget=band_budget,
-                dtype=mk_b.dtype, device=mk_b.device)
-            g = (_gibbs_thomson_value(cap, self.bc_i, mk_b, sign) if gibbs
-                 else None)
-            T, klv_it, _ = solve_moving_mono_step(
-                cap, D, f, self.bc_i, self.border, Told, t, dt, self.scheme,
-                tol=lin_tol, maxiter=lin_maxiter, g_override=g,
-                method=method)
-            return (T,) + _slab_flux(cap, D, T) + (klv_it,)
+            with span("stefan.slab_build"):
+                cap = compute_capacity_spacetime(
+                    _st_marker_body, mesh, 0.0, dt, p=p, s=s,
+                    params=(mk_a, mk_b, dt, sign), band_budget=band_budget,
+                    dtype=mk_b.dtype, device=mk_b.device)
+            self.last_slab = (Told, mk_a, mk_b, t, cap)
+            with span("stefan.slab_solve"):
+                g = (_gibbs_thomson_value(cap, self.bc_i, mk_b, sign)
+                     if gibbs else None)
+                T, klv_it, _ = solve_moving_mono_step(
+                    cap, D, f, self.bc_i, self.border, Told, t, dt,
+                    self.scheme, tol=lin_tol, maxiter=lin_maxiter,
+                    g_override=g, method=method)
+                return (T,) + _slab_flux(cap, D, T) + (klv_it,)
 
         return slab_solve
 
@@ -370,7 +397,10 @@ class StefanMono2D(_ScalarSolverBase):
         GN residual of every inner iteration, NaN-padded past convergence;
         ``self.residual_log``/``iters_log``/``krylov_iters`` per step;
         ``capture_residual_field=True`` also records the final per-cell
-        residual grid of each step in ``self.residual_fields``.
+        residual grid of each step in ``self.residual_fields``;
+        ``self.last_slab`` holds the last slab's (Told, mk_a, mk_b, t, cap),
+        from which the final temperature was solved: the GN's last residual
+        was evaluated there, one LM update before the final markers.
 
         ``jac``: ``"autodiff"`` differentiates the cut-cell volume
         quadrature exactly (one JVP per marker); ``"intercept"`` uses the
@@ -474,16 +504,21 @@ class StefanMono2D(_ScalarSolverBase):
             d, T = d0, None
             inc = torch.full((), math.inf, dtype=d0.dtype, device=d0.device)
             it = 0
-            while _still_iterating(it, max_iter, tol, inc):
-                mk_b = mk_a + d[:, None] * normals
-                T, flux, Va, Vb, _ = slab_solve(Told, mk_a, mk_b, t)
-                F = rhoL * (Va - Vb) - flux
-                d_inc = smooth_displacements(
-                    alpha * geom_displacements(mk_b, F), smooth_window,
-                    smooth_passes)
-                d = torch.clamp(d + d_inc, -max_disp, max_disp)
-                inc = torch.linalg.norm(d_inc)
-                it += 1
+            go = _still_iterating(it, max_iter, tol, inc)
+            while go:
+                with span("stefan.gn_iter"):
+                    mk_b = mk_a + d[:, None] * normals
+                    T, flux, Va, Vb, _ = slab_solve(Told, mk_a, mk_b, t)
+                    with span("stefan.update"):
+                        F = rhoL * (Va - Vb) - flux
+                        d_inc = smooth_displacements(
+                            alpha * geom_displacements(mk_b, F),
+                            smooth_window, smooth_passes)
+                        d = torch.clamp(d + d_inc, -max_disp, max_disp)
+                        inc = torch.linalg.norm(d_inc)
+                    it += 1
+                    with span("stefan.gn_host"):
+                        go = _still_iterating(it, max_iter, tol, inc)
             return d, T, (inc, it)
 
         Tf, mkf, mk_log, (incs, its) = _march_markers(
@@ -546,18 +581,21 @@ class StefanDiph2D(_ScalarSolverBase):
 
         def slab_solve(Xold, mk_a, mk_b, t):
             like = dict(dtype=mk_b.dtype, device=mk_b.device)
-            caps = [compute_capacity_spacetime(
-                _st_marker_body, mesh, 0.0, dt, p=p, s=s,
-                params=(mk_a, mk_b, dt, sg), band_budget=band_budget, **like)
-                for sg in (sign, -sign)]
-            b1m, b2m = (border_info(mesh, bc_b,
-                                    phase_mask=c.cell_types[..., 0] != 0,
-                                    **like) for c in caps)
-            X, klv_it, _ = solve_moving_diph_stef_step(
-                caps[0], caps[1], D1, D2, f1, f2, ic, b1m, b2m, Xold, t, dt,
-                scheme, tol=lin_tol, maxiter=lin_maxiter, method=method)
-            flux1, Va1, Vb1 = _slab_flux(caps[0], D1, X[:2])
-            flux2, _, _ = _slab_flux(caps[1], D2, X[2:])
+            with span("stefan.slab_build"):
+                caps = [compute_capacity_spacetime(
+                    _st_marker_body, mesh, 0.0, dt, p=p, s=s,
+                    params=(mk_a, mk_b, dt, sg), band_budget=band_budget,
+                    **like) for sg in (sign, -sign)]
+            with span("stefan.slab_solve"):
+                b1m, b2m = (border_info(mesh, bc_b,
+                                        phase_mask=c.cell_types[..., 0] != 0,
+                                        **like) for c in caps)
+                X, klv_it, _ = solve_moving_diph_stef_step(
+                    caps[0], caps[1], D1, D2, f1, f2, ic, b1m, b2m, Xold, t,
+                    dt, scheme, tol=lin_tol, maxiter=lin_maxiter,
+                    method=method)
+                flux1, Va1, Vb1 = _slab_flux(caps[0], D1, X[:2])
+                flux2, _, _ = _slab_flux(caps[1], D2, X[2:])
             F = latent_sign * rhoL * (Va1 - Vb1) - (flux1 + flux2)
             return (_box3_filter(F) if fuse else F), X, klv_it
 
